@@ -1,15 +1,15 @@
-"""Big-N (10^8+) single-chip pipeline: chunked encode, partitioned
+"""Big-N (10^8+) single-device pipeline: chunked encode, partitioned
 tree build, compressed-tier query.
 
 The reference reaches N~1.5B only by streaming 4KB blocks from disk
 through a sequential scanner (``deltapq_create_approx_tree.h:
-2805-2984``, ``N < INT_MAX`` cap at ``:982``).  The TPU-native big-N
-story instead bounds *host* memory by chunked generation/encoding and
-bounds *device* memory by the compressed tile representation
-(~3 B/vec resident + bounded per-batch scratch):
+2805-2984``, ``N < INT_MAX`` cap at ``:982``).  Here *host* memory is
+bounded by chunked generation/encoding and *device* memory by the
+compressed tile representation (~3 B/vec resident + per-batch scratch:
+the decoded codes and the subtile minima of one chunk):
 
 * ``encode_stream``      — encode a vector stream chunk-by-chunk on
-  the chip; only codes (M B/vec) accumulate on the host.
+  the device; only codes (M B/vec) accumulate on the host.
 * ``build_partitioned``  — lexicographic global sort, split into P
   contiguous partitions, build an independent DeltaTree per partition
   (a process pool covers all cores; partitions are the unit of
@@ -17,10 +17,6 @@ bounds *device* memory by the compressed tile representation
   tiles are TILE-self-contained, so partition boundaries cost nothing.
 * ``BigCompressedIndex`` — the fused compressed engine over the
   concatenated order, with database-id mapping.
-
-Device budget at N=1e8, B=128: tiles ~0.3 GB + decoded-codes echo
-0.8 GB + subtile mins 1.6 GB — comfortably inside one chip's HBM, with
-host RAM holding only codes + permutation (~1.6 GB).
 """
 
 from __future__ import annotations
@@ -101,8 +97,10 @@ def build_partitioned(codes: np.ndarray, n_parts: int = 16,
         # and fork risks deadlock in the children
         import multiprocessing as mp
 
+        from .platform import cpu_only_worker
+
         with ProcessPoolExecutor(
-                max_workers=workers,
+                max_workers=workers, initializer=cpu_only_worker,
                 mp_context=mp.get_context("spawn")) as ex:
             results = list(ex.map(_build_one_partition, jobs))
     else:
@@ -127,13 +125,14 @@ class BigCompressedIndex:
     """Compressed-tier index over a partition-concatenated scan order.
 
     Thin composition: ``build_partitioned`` + ``FusedCompressedEngine``
-    (delta tiles resident on device, decode fused into the scan).
+    (stream tiles resident on device, decoded per query batch).
+    Beyond ``2 * chunk_rows`` rows the engine is a resident
+    ``ChunkedCompressedEngine``, which bounds the per-batch scratch.
     """
 
     def __init__(self, codewords: np.ndarray, codes: np.ndarray,
                  n_parts: int = 16, method: int = 1, workers: int = 2,
-                 batch_b: int = 128, precision: str = "int8",
-                 chunk_rows: Optional[int] = None):
+                 batch_b: int = 128, chunk_rows: Optional[int] = None):
         from .ops.fused import FusedCompressedEngine
 
         K = codewords.shape[1]
@@ -141,33 +140,24 @@ class BigCompressedIndex:
             np.asarray(codes), n_parts=n_parts, K=K, method=method,
             workers=workers)
         codes_scan = np.asarray(codes)[self.row_to_db]
-        # int8 default: the shortlist scan runs at the MXU's 2x int8
-        # rate (exactness restored by the f32 rerank + certificate);
-        # bf16 measured ~2x slower at 100M (BIGRUN round 2).
-        # Beyond ~32M rows, split into resident chunks: one kernel
-        # call's tile-meta SMEM block scales with N/1024 and the
-        # per-chunk compile is reused across equal-size chunks.
         n = len(codes_scan)
         if chunk_rows is None:
             chunk_rows = ChunkedCompressedEngine.CHUNK_ROWS
         if n > 2 * chunk_rows:
             self.engine = ChunkedCompressedEngine(
                 codewords, codes_scan, row_to_db=self.row_to_db,
-                precision=precision, chunk_rows=chunk_rows,
-                resident=True)
+                chunk_rows=chunk_rows, resident=True)
         else:
             self.engine = FusedCompressedEngine(
-                codewords, codes_scan, row_to_db=self.row_to_db,
-                precision=precision)
+                codewords, codes_scan, row_to_db=self.row_to_db)
         self.batch_b = batch_b
 
     def bytes_per_vec(self) -> float:
         return self.engine.bytes_per_vec()
 
     def warmup(self, batch_sizes=(128,), top_k: int = 10) -> None:
-        """Pre-compile + certificate-calibrate the query path (VERDICT
-        r4 #3/#7): the serving story at 100M is warmup-then-serve, not
-        a 45 s first query."""
+        """Pre-compile + certificate-calibrate the query path: serve
+        after warmup, not on a cold first query."""
         if hasattr(self.engine, "warmup"):
             self.engine.warmup(batch_sizes, top_k=top_k)
 
@@ -181,16 +171,14 @@ class ChunkedCompressedEngine:
 
     The reference queries N~1.5e9 by streaming the DTC byte stream
     from disk in 4KB O_DIRECT blocks per query
-    (``deltapq_create_approx_tree.h:2805-2984``, ``:2816-2822``).  The
-    TPU analog: stream tiles live in HOST memory (numpy), and each
-    query batch uploads one chunk at a time, scans it with the fused
-    kernel, selects exact per-chunk top-k, and merges across chunks
-    (top-k of the concatenated candidates — exact, since per-chunk
-    results are exact).  ``resident=True`` keeps every chunk's tiles
-    on device (upload once) — that mode exists because one kernel call
-    over 10^8+ rows would also need a [2, N/1024] i32 tile-meta block
-    in SMEM (~0.8 MB at 1e8), past what a single Pallas call should
-    carry; chunking bounds it.
+    (``deltapq_create_approx_tree.h:2805-2984``, ``:2816-2822``).  Here
+    stream tiles live in HOST memory (numpy), and each query batch
+    uploads one chunk at a time, scans it with the fused kernel,
+    selects exact per-chunk top-k, and merges across chunks (top-k of
+    the concatenated candidates — exact, since per-chunk results are
+    exact).  ``resident=True`` keeps every chunk's tiles on device
+    (upload once); chunking then bounds the per-batch scratch (one
+    chunk's decoded codes and subtile minima at a time).
 
     Exactness: each chunk engine reranks in exact f32 with its own
     certificate/escalation, so the merged top-k equals the plain-scan
@@ -202,7 +190,7 @@ class ChunkedCompressedEngine:
 
     def __init__(self, codewords: np.ndarray, codes_scan: np.ndarray,
                  row_to_db: Optional[np.ndarray] = None,
-                 precision: str = "int8", chunk_rows: int = CHUNK_ROWS,
+                 chunk_rows: int = CHUNK_ROWS,
                  resident: bool = True, mesh=None,
                  shard_axis: str = "shard"):
         from .ops.fused import FusedCompressedEngine
@@ -228,15 +216,13 @@ class ChunkedCompressedEngine:
                     row_to_db=ids, axis=shard_axis))
             elif resident:
                 self.chunks.append(FusedCompressedEngine(
-                    codewords, codes_scan[lo:hi], row_to_db=ids,
-                    precision=precision))
+                    codewords, codes_scan[lo:hi], row_to_db=ids))
             else:
                 # defer tile upload to query time: store numpy tiles
                 from .ops.stream_tiles import build_stream_tiles
                 self._host.append((build_stream_tiles(
                     codes_scan[lo:hi]), ids))
         self.codewords = np.asarray(codewords, np.float32)
-        self.precision = precision
         if mesh is not None:
             self.resident = True  # sharded chunks live on the mesh
 
@@ -274,7 +260,7 @@ class ChunkedCompressedEngine:
             n += 1
         np.save(os.path.join(path, "codewords.npy"), self.codewords)
         with open(os.path.join(path, "header.json"), "w") as f:
-            json.dump({"n_chunks": n, "precision": self.precision}, f)
+            json.dump({"n_chunks": n}, f)
 
     @classmethod
     def from_saved(cls, path: str, mmap: bool = True,
@@ -288,8 +274,7 @@ class ChunkedCompressedEngine:
         ``deltapq_create_approx_tree.h:2816-2822``, as a page-cache
         -backed upload instead of a 4KB read loop).  ``mesh``: shard
         each chunk's scan over devices (BASELINE config-5 topology —
-        disk-backed chunks x a device mesh; rehearsed on the virtual
-        8-device mesh in tests/test_round5.py)."""
+        disk-backed chunks x a device mesh)."""
         import json
         import os
 
@@ -300,7 +285,6 @@ class ChunkedCompressedEngine:
             h = json.load(f)
         self = cls.__new__(cls)
         self.codewords = np.load(os.path.join(path, "codewords.npy"))
-        self.precision = h["precision"]
         self.resident = resident
         if mesh is not None:
             from .parallel.fused_sharded import ShardedCompressedEngine
@@ -323,15 +307,14 @@ class ChunkedCompressedEngine:
             ids = np.fromfile(os.path.join(cdir, "ids.i64"), np.int64)
             if resident:
                 self.chunks.append(FusedCompressedEngine.from_tiles(
-                    self.codewords, st, row_to_db=ids,
-                    precision=self.precision))
+                    self.codewords, st, row_to_db=ids))
             else:
                 self._host.append((st, ids))
         return self
 
     def warmup(self, batch_sizes=(128,), top_k: int = 10,
                calibrate: bool = True) -> None:
-        """Pre-compile + certificate-calibrate (VERDICT r4 #3): the
+        """Pre-compile + certificate-calibrate: the
         first chunk calibrates its first-rung size on its measured tie
         density; the hint seeds every other chunk (same data
         distribution — each still adapts individually afterwards).
@@ -359,8 +342,7 @@ class ChunkedCompressedEngine:
         elif self._host:
             st, ids = self._host[0]
             eng = FusedCompressedEngine.from_tiles(
-                self.codewords, st, row_to_db=ids,
-                precision=self.precision)
+                self.codewords, st, row_to_db=ids)
             if calibrate:
                 eng.calibrate(top_k=top_k)
                 self.ns_hint = getattr(eng, "ns_hint", None)
@@ -377,8 +359,7 @@ class ChunkedCompressedEngine:
             # upload one chunk at a time (the O_DIRECT-refill analog);
             # device arrays are dropped after each chunk's scan
             engines = (FusedCompressedEngine.from_tiles(
-                self.codewords, st, row_to_db=ids,
-                precision=self.precision)
+                self.codewords, st, row_to_db=ids)
                 for st, ids in self._host)
         hint = getattr(self, "ns_hint", None)
         for eng in engines:

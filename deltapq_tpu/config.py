@@ -96,7 +96,7 @@ class QueryConfig:
     """Query-execution parameters."""
 
     top_k: int = 10
-    batch_size: int = 128  # queries per TPU dispatch
+    batch_size: int = 128  # queries per device dispatch
     tile_n: int = 8192  # database rows per scan tile
     accum_dtype: str = "float32"
 

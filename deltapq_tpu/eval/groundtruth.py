@@ -1,10 +1,10 @@
-"""Exact brute-force top-k groundtruth on TPU.
+"""Exact brute-force top-k groundtruth.
 
 Reference: ``batch_partial_topk_queries`` (``main.cpp:107-166``) — OpenMP
 over queries x streamed buffers, exact squared L2, per-query max-heap.
-TPU design: the distance matrix for a (query batch x database tile) is a
-matmul on the MXU (``d2 = |q|^2 - 2 q x^T + |x|^2``), with a running
-top-k merged per tile under ``lax.scan``.
+Here the distance matrix for a (query batch x database tile) is one
+full-f32 matrix product (``d2 = |q|^2 - 2 q x^T + |x|^2``), with a
+running top-k merged per tile.
 """
 
 from __future__ import annotations
@@ -26,7 +26,9 @@ def _exact_tile_topk(q: jnp.ndarray, x_tile: jnp.ndarray, base: jnp.ndarray,
     tile = x_tile.shape[0]
     q2 = jnp.sum(q * q, axis=1, keepdims=True)
     x2 = jnp.sum(x_tile * x_tile, axis=1)
-    d2 = q2 - 2.0 * jnp.dot(q, x_tile.T, preferred_element_type=jnp.float32) \
+    d2 = q2 - 2.0 * jnp.dot(q, x_tile.T,
+                            precision=jax.lax.Precision.HIGHEST,
+                            preferred_element_type=jnp.float32) \
         + x2[None, :]
     ids = base + jax.lax.broadcasted_iota(jnp.int32, (1, tile), 1)
     d2 = jnp.where(ids < n_valid, d2, jnp.inf)

@@ -7,14 +7,13 @@ The ADC distance decomposes exactly (quadratic expansion):
 
 where ``xhat_n`` is the PQ-decoded vector (concatenated centroids) and
 ``precomp[n] = sum_m ||c_{m, codes[n,m]}||^2``.  The scan becomes a
-dense [N, D] @ [D, B] matmul on the MXU with **no gathers and no
-one-hot construction at query time** — HBM-bound on the decoded cache.
+dense [N, D] @ [D, B] matrix product with **no gathers at query time**
+— bound by reading the decoded cache.
 
 Memory/speed tier: costs D*4 bytes/vector (hi+lo bf16 split ~ f32-exact)
-vs M bytes for raw codes; the Pallas one-hot kernel (adc_pallas.py)
-remains the low-memory tier.  The reference has no such tier (its scan
-is the byte-stream loop, ``deltapq_create_approx_tree.h:2805``); this is
-a TPU-native design choice: trade cheap HBM for MXU-friendly layout.
+vs M bytes for raw codes.  The reference has no such tier (its scan is
+the byte-stream loop, ``deltapq_create_approx_tree.h:2805``): it trades
+device memory for a gather-free layout.
 
 Exactness: bf16 hi/lo matmuls accumulated in f32 give the cross term to
 ~2^-18 relative; the final candidates are **reranked with exact f32
@@ -124,31 +123,10 @@ def decoded_topk(xhat_hi: jnp.ndarray, xhat_lo: jnp.ndarray,
         neg, pos = jax.lax.top_k(-cand_d, top_k)
         return -neg, jnp.take_along_axis(cand_i, pos, axis=1)
 
-    # exact rerank of the shortlist with f32 table values.  The row
-    # gather for candidate codes is cheap (S*B rows), but the per-
-    # (candidate, subspace) table lookup is done as a one-hot einsum
-    # (compares + MXU) instead of S*B*M serial gathers, which dominate
-    # beyond S ~ 200 on TPU.
-    M = table.shape[1]
-    K = table.shape[2]
-    S = cand_i.shape[1]
-    cw = codes[jnp.clip(cand_i, 0, N - 1)].astype(jnp.int32)  # [B, S, M]
-    tf = table.reshape(B, M * K)
-    if S * B <= 16384:
-        exact = jnp.zeros(cand_i.shape, jnp.float32)
-        for m in range(M):
-            exact = exact + jnp.take_along_axis(
-                tf, m * K + cw[:, :, m], axis=1)
-    else:
-        iota_k = jax.lax.broadcasted_iota(jnp.int32, (1, 1, K), 2)
-        exact = jnp.zeros((B, S), jnp.float32)
-        for m in range(M):
-            # f32 one-hot einsum: selects exact f32 table entries
-            # (268 MFLOP total at S=512 — negligible)
-            onehot = (cw[:, :, m:m + 1] == iota_k).astype(jnp.float32)
-            exact = exact + jnp.einsum(
-                "bsk,bk->bs", onehot, tf[:, m * K:(m + 1) * K],
-                preferred_element_type=jnp.float32)
+    # exact rerank of the shortlist with f32 table values
+    from .adc import adc_rerank
+
+    exact = adc_rerank(table, codes[jnp.clip(cand_i, 0, N - 1)])
     exact = jnp.where(jnp.isfinite(cand_d), exact, jnp.inf)
     neg, pos = jax.lax.top_k(-exact, top_k)
     return -neg, jnp.take_along_axis(cand_i, pos, axis=1)

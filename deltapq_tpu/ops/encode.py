@@ -3,7 +3,8 @@
 Reference ``PQTree::EncodePlain`` (``pq_tree.cpp:192-253``) loops M x K x
 Ds per vector under OpenMP (``EncodeParallel``, ``main.cpp:29-58``).
 Here the whole batch is a single jitted program: per subspace the
-distance matrix is a matmul on the MXU and the code is an argmin over K.
+distance matrix is a full-f32 matrix product and the code is an argmin
+over K.
 Ties resolve to the lowest centroid id, matching the reference's
 ``dist < min`` scan order.
 """
@@ -27,6 +28,7 @@ def _encode_batch(codewords: jnp.ndarray, x: jnp.ndarray,
     xs = x.reshape(n, M, Ds)
     # d2[n, m, k] = |x|^2 - 2 x.c + |c|^2 ; |x|^2 constant in k -> skip
     cross = jnp.einsum("nmd,mkd->nmk", xs, codewords,
+                       precision=jax.lax.Precision.HIGHEST,
                        preferred_element_type=jnp.float32)
     c2 = jnp.sum(codewords * codewords, axis=2)  # [M, K]
     d2 = c2[None] - 2.0 * cross

@@ -1,28 +1,32 @@
 """Fused-scan engines: the production query tiers.
 
-Three engines over the shared fused Pallas kernels
-(``fused_pallas.py``) + exact-rerank epilogue.  All report **exact f32
-ADC distances** (identical to the reference plain scan's values) and
-carry a per-query exactness certificate:
+Two engines over the shared fused scan kernel (``fused_pallas.py``) +
+exact-rerank epilogue.  Both report **exact f32 ADC distances**
+(identical to the reference plain scan's values) and carry a per-query
+exactness certificate:
 
 ======================  ============  =================================
-engine                  HBM B/vec     kernel input
+engine                  resident      scan input
 ======================  ============  =================================
-FusedDecodedEngine      D*2 + 4       bf16 decoded cache (fastest)
-FusedCodesEngine        M             u8 codes, one-hot decode on MXU
+FusedCodesEngine        M B/vec       u8 codes
 FusedCompressedEngine   1+diffs/row   stream tiles (mask planes + one
-                        (data-dep.)   packed value stream), decoded
-                                      fully in-kernel; fmt="slots"
-                                      keeps the fixed-slot v1 tiles
+                        (data-dep.)   packed value stream), decoded to
+                                      codes on the device per batch
 ======================  ============  =================================
 
-The compressed engine is the TPU realization of the reference's
+The compressed engine is the device realization of the reference's
 compressed-stream query
 (``query_processing_scan_compressed_codes_opt_o_direct``,
 ``deltapq_create_approx_tree.h:2805-2984``): same information content
 (DFS-ordered diffs), decoded tile-parallel instead of stack-serial.
-Its rerank reads the kernel's own decoded-codes output, so no plain
-code array needs to stay resident.
+The decoded codes feed both the scan and the rerank, so no plain code
+array stays resident.  ``DedupCompressedEngine`` scans each distinct
+code once and expands row ids on the host.
+
+The selection constants below (``_pool_for``, ``_default_n_sub``, the
+ladder cap in ``_select_with_escalation``, ``ADAPT_*`` and
+``DedupCompressedEngine.EXACT_ALL_MAX_ROWS``) have not been measured on
+the GPU yet; ROADMAP lists them.
 """
 
 from __future__ import annotations
@@ -35,30 +39,31 @@ import jax.numpy as jnp
 import numpy as np
 
 from .adc import adc_table
-from .decoded import build_decoded_cache
-from .delta_tiles import TILE, DeltaTiles, build_delta_tiles
-from .stream_tiles import StreamTiles, build_stream_tiles
+from .stream_tiles import (TILE, StreamTiles, build_stream_tiles,
+                           decode_stream_device)
 from . import fused_pallas as fp
 
 
-def _pad_queries(queries: np.ndarray, d_pad: int, b_mult: int = 128
+def _pad_queries(queries: np.ndarray, d_pad: int
                  ) -> Tuple[np.ndarray, int]:
+    """Zero-pad queries to [b_pad, d_pad]: b_pad is the next power of
+    two >= max(b, SCAN_BB), so a server's varying wave sizes share a
+    handful of compiled shapes."""
     q = np.asarray(queries, np.float32)
     b = q.shape[0]
-    b_pad = -(-b // b_mult) * b_mult
+    b_pad = max(fp.SCAN_BB, 1 << max(b - 1, 0).bit_length())
     out = np.zeros((b_pad, d_pad), np.float32)
     out[:b, :q.shape[1]] = q
     return out, b
 
 
-
 def _row_ids_i32(ids) -> np.ndarray:
     """Row-id map for the device-side gather.  i32 on device (half the
-    HBM of i64); ids must stay below 2^31 — the reference has the same
-    cap (N < INT_MAX, ``deltapq_create_approx_tree.h:982``).  Beyond
-    that, shard the index (``bigscale.ChunkedCompressedEngine`` keeps
-    per-chunk ids well under the bound; its cross-chunk merge carries
-    i64).  VERDICT r4 #6 audit: tests/test_round5.py."""
+    memory of i64); ids must stay below 2^31 — the reference has the
+    same cap (N < INT_MAX, ``deltapq_create_approx_tree.h:982``).
+    Beyond that, split the index (``bigscale.ChunkedCompressedEngine``
+    keeps per-chunk ids well under the bound; its cross-chunk merge
+    carries i64)."""
     a = np.asarray(ids)
     if len(a) and int(a.max()) >= 2 ** 31:
         raise ValueError(
@@ -71,22 +76,10 @@ def _row_ids_i32(ids) -> np.ndarray:
 def _pool_for(ns_total: int) -> int:
     """Min-pool factor for the selection epilogue: coarsen the
     candidate unit so the [B, NS/pool] top_k + relayout stay small.
-
-    Round-5 recalibration (tools/bench_epilogue_grid.py, 1M rows,
-    B=512, int16 stream tier, dup~1.06 workload): FINER units beat
-    coarser ones decisively once the certificate is tight — the top-k
-    rows concentrate in few 32-row subtiles, so 32 units of 32 rows
-    cover them where 8 units of 128 rows miss (pool=1 rungs
-    (1024, 8192) = 13.9 ms vs pool=4 best 17.7 ms; first-shot 1.000
-    vs 0.869 at equal rerank rows).  Pool still must grow with N: the
-    pooled [B, NS/pool] relayout is the epilogue's largest memory
-    move (a 16M-row chunk at pool=1 would transpose 1 GB/batch).  The
-    fence bound stays valid at any pool (a pooled min lower-bounds
-    all its rows); a coarser fence only costs escalation frequency,
-    never exactness."""
-    import os
-    if os.environ.get("DELTAPQ_POOL"):       # epilogue experiments
-        return int(os.environ["DELTAPQ_POOL"])
+    Finer units certify more often (the top-k rows concentrate in few
+    32-row subtiles), so pool grows only with N.  The fence bound stays
+    valid at any pool (a pooled min lower-bounds all its rows); a
+    coarser fence only costs escalation frequency, never exactness."""
     if ns_total <= 32768:        # <= 1M rows
         return 1
     if ns_total <= 131072:       # <= 4M rows
@@ -98,14 +91,10 @@ def _pool_for(ns_total: int) -> int:
 
 def _default_n_sub(top_k: int, n_units: int, unit: int) -> int:
     """Candidate unit count: ~50x over-provision of top_k rows (at
-    least 512 rows), bounded to the database.  Round-5 grid
-    (tools/bench_epilogue_grid.py, 1M sift_like, int16, B=512):
-    512-row first rung keeps first-shot 1.000 and beats 1024 rows
-    (10.45 vs 11.80 ms/batch = 49.0k vs 43.4k QPS); 256 rows
-    collapses to 0.848 first-shot and loses (15.5 ms).  Under-
-    provision on other index shapes is recovered by the per-index
-    calibration + across-batch adaptive growth (``ns_hint``) and the
-    new gentle 2x escalation rung."""
+    least 512 rows), bounded to the database.  Under-provision on other
+    index shapes is recovered by the per-index calibration, the
+    across-batch adaptive growth (``ns_hint``) and the 2x escalation
+    rung."""
     want = -(-max(50 * top_k, 512) // unit)
     return int(max(2, min(want, max(n_units - 1, 1))))
 
@@ -113,32 +102,27 @@ def _default_n_sub(top_k: int, n_units: int, unit: int) -> int:
 @functools.partial(jax.jit, static_argnames=("top_k", "rungs", "pool",
                                              "final_exact"))
 def fused_select_esc(mins_nb, q2, table, codes_dev, n_valid, top_k,
-                     rungs, pool, err_r=None, scale2=None,
-                     invalid=None, final_exact=False):
-    """Device-resident selection + escalation (VERDICT r3 #2):
-    ``rungs`` is an ascending tuple of candidate-unit counts; rung 1
-    always runs, and each later rung is a ``lax.cond``-gated IN-GRAPH
-    retry that fires only when some query's exactness certificate
-    still fails — the all-pass path costs zero host round-trips, and
-    the whole ladder is one device sync (the result transfer).
+                     rungs, pool, invalid=None, final_exact=False):
+    """Device-resident selection + escalation: ``rungs`` is an
+    ascending tuple of candidate-unit counts; rung 1 always runs, and
+    each later rung is a ``lax.cond``-gated IN-GRAPH retry that fires
+    only when some query's exactness certificate still fails — the
+    all-pass path costs zero host round-trips, and the whole ladder is
+    one device sync (the result transfer).
     Returns (d, rows, ok, ok1): ``ok`` is the final per-query
-    certificate (the caller runs the terminal full exact scan on the
-    rare all-rungs-failed batch), ``ok1`` the first-shot one (the
-    exact_frac statistic).  Reference semantics: results are always
-    exact (``deltapq_create_approx_tree.h:2909-2914``'s heap is exact
-    by construction); here exactness comes from the certificate chain.
+    certificate, ``ok1`` the first-shot one (the exact_frac
+    statistic).  With ``final_exact`` a cond-gated full exact scan
+    covers every query whose certificate still fails, so results are
+    exact by construction (the reference's heap is exact the same way,
+    ``deltapq_create_approx_tree.h:2909-2914``); ``invalid`` forces
+    queries onto that scan.
     """
     mins_bn = fp.pool_mins_nb(mins_nb, pool)
-    if scale2 is not None:
-        # int8 scale^2 rescale AFTER pooling: min-pool commutes with a
-        # positive scale, and the pooled [B, NS/pool] is ``pool``x
-        # smaller than the kernel-layout [NS, B] it replaces
-        mins_bn = mins_bn * scale2
 
     def rung(ns):
         d, r, ok = fp.select_rerank(mins_bn, q2, table, codes_dev,
                                     n_valid, top_k, ns, pool,
-                                    prepooled=True, err_r=err_r)
+                                    prepooled=True)
         if invalid is not None:
             ok = jnp.logical_and(ok, jnp.logical_not(invalid))
         return d, r, ok
@@ -150,16 +134,11 @@ def fused_select_esc(mins_nb, q2, table, codes_dev, n_valid, top_k,
             jnp.all(ok), lambda _, cur=(d, rows, ok): cur,
             lambda _, ns=ns: rung(ns), operand=None)
     if final_exact:
-        # terminal rung: cond-gated full exact scan over the decoded
-        # codes, merged per query — the ladder is then exact BY
-        # CONSTRUCTION with zero host round-trips (``ok`` reports
-        # which queries certified without it, for stats)
         from .adc import adc_query_topk
 
         # biggest scan tile that divides the padded code rows: the
-        # scan is a sequential lax.scan over tiles, so tile count sets
-        # its latency (1024-row tiles made a 1M-row terminal scan
-        # ~145 ms; 16384-row tiles are ~10x faster)
+        # terminal scan is a sequential lax.scan over tiles, so the
+        # tile count sets its latency
         tile_n = TILE
         while (tile_n * 2 <= 16384
                and codes_dev.shape[0] % (tile_n * 2) == 0):
@@ -176,313 +155,98 @@ def fused_select_esc(mins_nb, q2, table, codes_dev, n_valid, top_k,
     return d, rows, ok, ok1
 
 
-#: adaptive certificate calibration (VERDICT r4 #3): grow the first
-#: rung when the measured first-shot pass rate falls below GROW_BELOW
-#: (the 8x escalation rung firing every batch costs ~10 ms; one
-#: power-of-2 step per batch settles in <= 6 batches and each step
-#: compiles once, landing in the persistent XLA cache)
+#: adaptive certificate calibration: grow the first rung when the
+#: measured first-shot pass rate falls below GROW_BELOW (one power-of-2
+#: step per batch; each step compiles once, landing in the persistent
+#: compilation cache)
 ADAPT_GROW_BELOW = 0.35
 ADAPT_TARGET = 0.6
 
 
-def _select_with_escalation(mins_nb, q2, table, codes_dev, n_valid,
-                            top_k, n_sub=None, invalid=None,
-                            err_r=None, scale2=None, engine=None):
-    """Select + rerank with FULLY device-resident escalation.
+def _ladder(ns_total: int, b_cols: int, top_k: int,
+            ns: Optional[int] = None) -> Tuple[Tuple[int, ...], int]:
+    """(rungs, pool) of the escalation ladder for ``ns_total`` subtiles
+    and a ``b_cols``-query batch; ``ns`` overrides the first rung.
 
-    The whole ladder — first shot, 16x rung, and the cond-gated
-    terminal full exact scan — runs inside ONE jitted call
-    (``fused_select_esc(final_exact=True)``): results are exact by
-    construction with zero host round-trips (the round-3 Python
-    ladder cost a device sync per rung and overtook the scan kernel
-    at 20M rows).  ``invalid`` marks queries whose mins are
-    untrustworthy — their certificate is forced false so the terminal
-    scan covers them.  ``engine``: when given and ``n_sub`` is None,
-    the first rung size comes from ``engine.ns_hint`` (per-index
-    calibration, VERDICT r4 #3) and is grown in power-of-2 steps when
-    the measured first-shot rate collapses — the static
-    ``_default_n_sub`` heuristic was tuned at 1M and under-provisions
-    dense-tie indexes at 16M-row chunk scale (100M BIGRUN first-shot
-    0.112).  Returns (d, rows, exact_frac_before_escalation)."""
-    ns_total = mins_nb.shape[0]
+    The ceiling caps the candidate pool at 64K rows per query and
+    shrinks inversely with the batch (the cap rung's live
+    intermediates are [B, S]-shaped); queries that fail past it go to
+    the terminal exact scan.  Shape (ns, 2ns, 8ns, cap): the 2x rung
+    absorbs borderline misses at a quarter of the 8x rung's cost; each
+    rung is cond-gated and costs nothing when it doesn't fire."""
     pool = _pool_for(ns_total)
     n_units = -(-ns_total // pool)
     unit = fp.SUB * pool
-    hint = getattr(engine, "ns_hint", None) if engine is not None \
-        else None
-    ns = n_sub or hint or _default_n_sub(top_k, n_units, unit)
+    ns = ns or _default_n_sub(top_k, n_units, unit)
     ns = min(ns, max(n_units - 1, 1))
-    # ladder ceiling: the rerank gathers ns*unit rows per query; cap
-    # the candidate pool at 64k rows — tie pileups wider than that
-    # (duplicate-heavy data; the dedup tier's territory) go to the
-    # terminal exact scan instead of a monster gather
-    # ladder ceiling scales INVERSELY with batch: the cap rung's live
-    # intermediates are [B, S]-shaped, so a fixed 64K-row cap that
-    # fits at B=512 OOMs single-chip HBM at B=2048 (measured 17.3 GB
-    # vs 15.75).  Queries that fail past the cap go to the terminal
-    # exact scan — exactness is unaffected, only escalation granularity
-    b_cols = int(mins_nb.shape[1])
     cap_rows = max(8192, 65536 * 512 // max(b_cols, 512))
     ns_cap = min(max(n_units - 1, 1), max(ns, cap_rows // unit))
-    # ladder shape (ns, 2ns, 8ns, cap): the 2x rung absorbs borderline
-    # first-shot misses at a quarter of the 8x rung's rerank cost —
-    # at 100M/first-shot 0.55, SOME query misses almost every batch,
-    # so the firing rung's size is the per-batch marginal cost; each
-    # rung is lax.cond-gated and costs nothing when it doesn't fire
     rungs = tuple(dict.fromkeys(
         [ns, min(ns * 2, ns_cap), min(ns * 8, ns_cap), ns_cap]))
+    return rungs, pool
+
+
+def _select_with_escalation(mins_nb, q2, table, codes_dev, n_valid,
+                            top_k, n_sub=None, invalid=None,
+                            engine=None):
+    """Select + rerank with fully device-resident escalation: the whole
+    ladder — first shot, escalation rungs, and the cond-gated terminal
+    full exact scan — runs inside ONE jitted call
+    (``fused_select_esc(final_exact=True)``), so results are exact by
+    construction with zero host round-trips.  ``invalid`` marks
+    queries whose mins are untrustworthy.  ``engine``: when given and
+    ``n_sub`` is None, the first rung comes from ``engine.ns_hint``
+    (per-index calibration) and grows in power-of-2 steps when the
+    measured first-shot rate collapses.  Returns (d, rows,
+    exact_frac_before_escalation)."""
+    hint = getattr(engine, "ns_hint", None) if engine is not None \
+        else None
+    rungs, pool = _ladder(mins_nb.shape[0], int(mins_nb.shape[1]),
+                          top_k, n_sub or hint)
     d, rows, ok, ok1 = fused_select_esc(
         mins_nb, q2, table, codes_dev, n_valid, top_k, rungs, pool,
-        err_r=err_r, scale2=scale2, invalid=invalid,
-        final_exact=True)
+        invalid=invalid, final_exact=True)
     first_frac = float(np.asarray(ok1).mean())
+    ns, ns_cap = rungs[0], rungs[-1]
     if (engine is not None and n_sub is None
             and first_frac < ADAPT_GROW_BELOW and ns < ns_cap):
         engine.ns_hint = min(ns * 2, ns_cap)
     return d, rows, first_frac
 
 
-class FusedDecodedEngine:
-    """Decoded-cache tier with fused subtile-min scan.
+class _FusedScan:
+    """Shared codebook setup + query path of the fused engines: the
+    subclass provides ``_codes()`` (the [N_pad, M] u8 codes the scan
+    reads, N_pad a TILE multiple), ``n_valid`` and ``row_to_db``."""
 
-    HBM per vector: D*2 (bf16 xhat, tiled column-major) + 4 (precomp)
-    + M (codes, rerank only).
-    """
-
-    def __init__(self, codewords: np.ndarray, codes: np.ndarray,
-                 tile: int = 8192):
-        # tile=8192 runs the mins kernel at ~87-107% of nominal v5e
-        # HBM peak (0.33 ms for 256 MB at 1M rows); 1024 measures ~58%
-        codewords = np.asarray(codewords, np.float32)
-        M, K, Ds = codewords.shape
-        self.codewords = jnp.asarray(codewords)
-        self.M, self.K = M, K
-        self.D = M * Ds
-        self.d_pad = -(-self.D // 128) * 128
-        self.n_valid = codes.shape[0]
-        self.mu = np.zeros(self.d_pad, np.float32)
-        self.mu[:self.D] = fp.codebook_center(codewords)
-        hi, _lo, _pre = build_decoded_cache(codewords, np.asarray(codes),
-                                            center=self.mu[:self.D])
-        if self.d_pad != self.D:
-            hi = np.concatenate(
-                [hi, np.zeros((len(hi), self.d_pad - self.D),
-                              hi.dtype)], axis=1)
-        xt = fp.pack_xhat_tiles(np.asarray(hi), tile=tile)
-        self.xt = jnp.asarray(xt)
-        n_pad = xt.shape[0] * tile
-        codes_p = np.zeros((n_pad, M), np.asarray(codes).dtype)
-        codes_p[:self.n_valid] = codes
-        self.codes = jnp.asarray(codes_p)
-
-    def query(self, queries: np.ndarray, top_k: int = 10,
-              n_sub: Optional[int] = None
-              ) -> Tuple[np.ndarray, np.ndarray]:
-        q, b = _pad_queries(queries, self.d_pad)
-        qj = jnp.asarray(q)
-        table = adc_table(self.codewords, qj[:, :self.D])
-        qc = jnp.asarray(q - self.mu[None, :])  # centered scan domain
-        q2 = jnp.sum(qc * qc, axis=1)
-        mins = fp.fused_decoded_mins(qc.astype(jnp.bfloat16).T, self.xt,
-                                     jnp.int32(self.n_valid))
-        d, rows, frac = _select_with_escalation(
-            mins, q2, table, self.codes, jnp.int32(self.n_valid),
-            top_k, n_sub, engine=self)
-        self.last_exact_frac = frac
-        return np.asarray(d[:b]), np.asarray(rows[:b])
-
-
-def _int8_codeword_radius(codewords: np.ndarray, mu: np.ndarray,
-                          scale: float) -> float:
-    """Max over codes of the exact L2 norm of the codeword
-    quantization error: sqrt(sum_m max_k ||c_mk - scale*round||^2).
-    Any decoded row's quantized vector sits within this radius of its
-    true decoded vector — the codeword side of the int8 exactness
-    certificate."""
-    cw = np.asarray(codewords, np.float32)
-    M, K, Ds = cw.shape
-    cwc = cw - mu[:M * Ds].reshape(M, 1, Ds)
-    err = cwc - scale * np.rint(cwc / scale)
-    per_mk = np.sum(err * err, axis=2)             # [M, K]
-    return float(np.sqrt(per_mk.max(axis=1).sum()))
-
-
-def _int16_codeword_radius(codewords: np.ndarray, mu: np.ndarray,
-                           scale: float) -> float:
-    """int16 analog of ``_int8_codeword_radius``: the quantization
-    step is scale/128 (dual-digit A = round(c*128/scale), matching
-    ``fp.quantize_blockdiag_int16`` exactly incl. the clip), so the
-    radius shrinks ~128x — the certificate becomes tight enough that
-    its pass rate equals genuine candidate coverage."""
-    cw = np.asarray(codewords, np.float32)
-    M, K, Ds = cw.shape
-    cwc = cw - mu[:M * Ds].reshape(M, 1, Ds)
-    A = np.clip(np.rint(cwc * (128.0 / scale)), -16256, 16256)
-    err = cwc - (scale / 128.0) * A
-    per_mk = np.sum(err * err, axis=2)             # [M, K]
-    return float(np.sqrt(per_mk.max(axis=1).sum()))
-
-
-def _setup_precision(self, codewords: np.ndarray, precision: str):
-    """Shared engine codebook-operand setup per precision tier."""
-    if precision == "int8":
-        cwq, self.scale = fp.quantize_blockdiag_int8(
-            codewords, center=self.mu[:self.D])
-        self.cwbd = jnp.asarray(cwq)
-        self.err_c = _int8_codeword_radius(codewords, self.mu,
-                                           self.scale)
-    elif precision == "int16":
-        M, K, Ds = codewords.shape
-        if fp._int16_g2() and M * Ds == 128 and M % 2 == 0:
-            # experimental G2-packed decode (halved decode-matmul
-            # MACs at full lane utilization; same digit values/scale)
-            cwq, self.scale = fp.quantize_blockdiag_int16_g2(
-                codewords, center=self.mu[:self.D])
-        else:
-            cwq, self.scale = fp.quantize_blockdiag_int16(
-                codewords, center=self.mu[:self.D])
-        self.cwbd = jnp.asarray(cwq)
-        self.err_c = _int16_codeword_radius(codewords, self.mu,
-                                            self.scale)
-    else:
-        self.scale = None
-        self.cwbd = jnp.asarray(fp.build_blockdiag_codebook(
-            codewords, center=self.mu[:self.D]))
-
-
-def _mins_query_args(qc: np.ndarray, precision: str, scale):
-    """Centered grouped-layout queries [B, G*Dg_pad] -> (kernel q
-    operand [G*Dg_pad, B] bf16/int8, invalid mask or None, headroom
-    u [1, B] f32 or None).
-
-    int8: each query is quantized at ``scale * u_b`` with
-    ``u_b = max(1, max|qc_b| / (127 scale))`` — NOTHING clips (a
-    codebook-only scale made 96% of realistic big-N queries clip into
-    the exact-fallback path).  The kernel multiplies ``cross`` by u so
-    pre/cross share the scale^2 domain.  Also returns the EXACT
-    query-side rounding radius ``e_q[b] = ||qc_b - scale u_b qq_b||``
-    — with the engine's precomputed codeword radius this gives a
-    certificate allowance ~2-3x tighter than the worst-case
-    scale*sqrt(D) bound (more first-shot passes, fewer escalations).
-
-    int16: dual base-128 digits at step ``scale*u/128`` ([B, 2*GD]
-    stacked a|b planes, kernel layout [2*GD, B]); e_q shrinks ~128x
-    accordingly."""
-    if precision == "int8":
-        amax = np.abs(qc).max(axis=1)
-        u = np.maximum(1.0, amax / (127.0 * scale)).astype(np.float32)
-        qq = np.clip(np.rint(qc / (scale * u[:, None])),
-                     -127, 127).astype(np.int8)
-        e_q = np.linalg.norm(
-            qc - (scale * u[:, None]) * qq.astype(np.float32),
-            axis=1).astype(np.float32)
-        return (jnp.asarray(qq.T), None,
-                jnp.asarray(u.reshape(1, -1)), jnp.asarray(e_q))
-    if precision == "int16":
-        amax = np.abs(qc).max(axis=1)
-        u = np.maximum(1.0, amax / (127.0 * scale)).astype(np.float32)
-        Aq = np.clip(np.rint(qc * (128.0 / (scale * u[:, None]))),
-                     -16256, 16256)
-        qa = np.clip(np.rint(Aq / 128.0), -127, 127)
-        qb = Aq - 128.0 * qa                              # in [-64, 64]
-        e_q = np.linalg.norm(
-            qc - (scale * u[:, None] / 128.0) * Aq,
-            axis=1).astype(np.float32)
-        qop = np.concatenate([qa, qb], axis=1).astype(np.int8)
-        return (jnp.asarray(qop.T), None,
-                jnp.asarray(u.reshape(1, -1)), jnp.asarray(e_q))
-    return jnp.asarray(qc.astype(jnp.bfloat16).T), None, None, None
-
-
-def _quantized_query_stats(self, qop, uq, eq):
-    """(q2, err_r, scale2) for the int8/int16 certificate domains.
-
-    Certificate geometry lives in the quantized domain: fence + q2
-    must equal ||x_qs - q_qs||^2 exactly, so q2 is the QUANTIZED query
-    norm; the true-vs-quantized gap is the per-query radius err_r =
-    ||e_q||_exact + max-codeword radius (both exact norms).  For int16
-    the radius is ~128x smaller, plus a 1e-4 allowance covering the
-    kernel's f32 digit-combination rounding (rel ~6e-8 of the 16384x
-    term)."""
-    div = 128.0 if self.precision == "int16" else 1.0
-    s_eff = self.scale / div
-    scale2 = jnp.float32(s_eff * s_eff)
-    uqv = uq[0]
-    if self.precision == "int16":
-        GD = qop.shape[0] // 2
-        Aq = (128.0 * qop[:GD].astype(jnp.float32)
-              + qop[GD:].astype(jnp.float32))
-        q2 = scale2 * uqv * uqv * jnp.sum(Aq * Aq, axis=0)
-        err_r = eq + jnp.float32(self.err_c) + jnp.float32(1e-4)
-    else:
-        q2 = (scale2 * uqv * uqv
-              * jnp.sum(qop.astype(jnp.float32) ** 2, axis=0))
-        err_r = eq + jnp.float32(self.err_c)
-    return q2, err_r, scale2
-
-
-class FusedCodesEngine:
-    """u8-codes tier: M bytes/vec resident; one-hot decode + matmul in
-    the kernel."""
-
-    def __init__(self, codewords: np.ndarray, codes: np.ndarray,
-                 order: Optional[np.ndarray] = None,
-                 precision: str = "bf16"):
+    def _init_codebook(self, codewords: np.ndarray) -> None:
         codewords = np.asarray(codewords, np.float32)
         M, K, Ds = codewords.shape
         if K > 256:
-            # u16 codes need a [TILE, M*K>2048] one-hot scratch that
-            # busts VMEM; K>256 runs on the decoded tier or the legacy
-            # engines (the reference's DTC formats are K<=256 too)
             raise NotImplementedError(
-                "fused codes/delta tiers require K <= 256; use "
-                "FusedDecodedEngine or the legacy engines for u16")
+                "fused tiers require K <= 256 (u8 codes); use the "
+                "plain XLA scan for u16 codes")
         self.codewords = jnp.asarray(codewords)
         self.M, self.K, self.Ds = M, K, Ds
         self.D = M * Ds
-        self.d_pad = -(-self.D // 128) * 128
-        codes = np.asarray(codes)
-        self.n_valid = codes.shape[0]
-        if order is not None:
-            codes = codes[np.asarray(order, np.int64)]
-            self.row_to_db = jnp.asarray(
-                _row_ids_i32(order))
-        else:
-            self.row_to_db = None
-        n_pad = -(-self.n_valid // TILE) * TILE
-        codes_p = np.zeros((n_pad, M), np.uint8)
-        codes_p[:self.n_valid] = codes
-        self.codes = jnp.asarray(codes_p)
+        self.d_pad = fp.scan_width(self.D)
         self.mu = np.zeros(self.d_pad, np.float32)
         self.mu[:self.D] = fp.codebook_center(codewords)
-        self.precision = precision
-        _setup_precision(self, codewords, precision)
+        self.cb = fp.scan_codebook(codewords, self.mu[:self.D])
 
     def query(self, queries: np.ndarray, top_k: int = 10,
               n_sub: Optional[int] = None
               ) -> Tuple[np.ndarray, np.ndarray]:
         q, b = _pad_queries(queries, self.d_pad)
-        qj = jnp.asarray(q)
-        table = adc_table(self.codewords, qj[:, :self.D])
-        qc_np = q - self.mu[None, :]            # centered scan domain
-        qc = jnp.asarray(qc_np)
+        table = adc_table(self.codewords, jnp.asarray(q[:, :self.D]))
+        qc = jnp.asarray(q - self.mu[None, :])    # centred scan domain
         q2 = jnp.sum(qc * qc, axis=1)
-        qk = fp.pack_query_grouped(qc_np[:, :self.D], self.M, self.Ds)
-        qop, invalid, uq, eq = _mins_query_args(qk, self.precision,
-                                                self.scale)
-        mins, codes_echo = fp.fused_codes_mins(
-            qop, self.cwbd, self.codes, jnp.int32(self.n_valid),
-            u=uq, int16=self.precision == "int16")
-        if self.precision in ("int8", "int16"):
-            q2, err_r, scale2 = _quantized_query_stats(self, qop, uq,
-                                                       eq)
-        else:
-            err_r = None
-            scale2 = None
+        codes = self._codes()
+        n_valid = jnp.int32(self.n_valid)
+        mins = fp.scan_mins(qc.astype(jnp.bfloat16).T, self.cb, codes,
+                            n_valid, self.M, self.K, self.Ds)
         d, rows, frac = _select_with_escalation(
-            mins, q2, table, codes_echo, jnp.int32(self.n_valid),
-            top_k, n_sub, invalid=invalid, err_r=err_r,
-            scale2=scale2, engine=self)
+            mins, q2, table, codes, n_valid, top_k, n_sub, engine=self)
         self.last_exact_frac = frac
         if self.row_to_db is not None:
             mapped = jnp.take(self.row_to_db,
@@ -491,95 +255,81 @@ class FusedCodesEngine:
         return np.asarray(d[:b]), np.asarray(rows[:b])
 
 
-class FusedCompressedEngine:
-    """Compressed tier: delta-compressed tiles resident; full decode
-    happens inside the scan kernel.
+class FusedCodesEngine(_FusedScan):
+    """Plain-codes tier: M bytes/vec resident, the fused scan reads
+    them directly (no decode) — the baseline compression is costed
+    against."""
 
-    fmt="stream" (default): packed value stream at ~(1 + diffs/row)
-    B/vec — the information content of the reference's DTC stream
-    (``deltapq_create_approx_tree.h:1765``).  fmt="slots": the v1
-    fixed-slot tiles (S inline slots + overflow bank).
+    def __init__(self, codewords: np.ndarray, codes: np.ndarray,
+                 order: Optional[np.ndarray] = None):
+        self._init_codebook(codewords)
+        codes = np.asarray(codes)
+        self.n_valid = codes.shape[0]
+        if order is not None:
+            codes = codes[np.asarray(order, np.int64)]
+            self.row_to_db = jnp.asarray(_row_ids_i32(order))
+        else:
+            self.row_to_db = None
+        n_pad = -(-self.n_valid // TILE) * TILE
+        codes_p = np.zeros((n_pad, self.M), np.uint8)
+        codes_p[:self.n_valid] = codes
+        self.codes = jnp.asarray(codes_p)
+
+    def _codes(self) -> jnp.ndarray:
+        return self.codes
+
+
+class FusedCompressedEngine(_FusedScan):
+    """Compressed tier: stream tiles resident (~(1 + diffs/row) B/vec —
+    the information content of the reference's DTC stream,
+    ``deltapq_create_approx_tree.h:1765``); every query batch decodes
+    them to codes on the device and runs the fused scan.
 
     Build from a DeltaTree (DFS order = tile order) or from raw codes
     plus an explicit scan order.
     """
 
     def __init__(self, codewords: np.ndarray, codes_scan: np.ndarray,
-                 row_to_db: Optional[np.ndarray] = None,
-                 S: Optional[int] = None, precision: str = "bf16",
-                 fmt: str = "stream"):
-        codewords = np.asarray(codewords, np.float32)
-        M, K, Ds = codewords.shape
-        if K > 256:
-            raise NotImplementedError(
-                "fused codes/delta tiers require K <= 256; use "
-                "FusedDecodedEngine or the legacy engines for u16")
-        self.codewords = jnp.asarray(codewords)
-        self.M, self.K, self.Ds = M, K, Ds
-        self.D = M * Ds
-        self.d_pad = -(-self.D // 128) * 128
-        self.fmt = fmt
-        if fmt == "stream":
-            self.tiles: StreamTiles = build_stream_tiles(
-                np.asarray(codes_scan))
-            self.vals = jnp.asarray(self.tiles.vals)
-            self.meta = jnp.asarray(self.tiles.meta)
-        elif fmt == "slots":
-            self.tiles = build_delta_tiles(np.asarray(codes_scan), S=S)
-            self.ovf = jnp.asarray(self.tiles.ovf)
-        else:
-            raise ValueError(f"unknown delta-tile format {fmt!r}")
-        self.n_valid = self.tiles.n_valid
-        self.row_data = jnp.asarray(self.tiles.row_data)
-        self.mu = np.zeros(self.d_pad, np.float32)
-        self.mu[:self.D] = fp.codebook_center(codewords)
-        self.precision = precision
-        _setup_precision(self, codewords, precision)
-        self.row_to_db = (jnp.asarray(
-            _row_ids_i32(row_to_db))
-            if row_to_db is not None else None)
+                 row_to_db: Optional[np.ndarray] = None):
+        self._init_codebook(codewords)
+        self._set_tiles(build_stream_tiles(np.asarray(codes_scan)),
+                        row_to_db)
+
+    def _set_tiles(self, tiles: StreamTiles,
+                   row_to_db: Optional[np.ndarray]) -> None:
+        self.tiles = tiles
+        self.n_valid = tiles.n_valid
+        self.row_data = jnp.asarray(tiles.row_data)
+        self.vals = jnp.asarray(tiles.vals)
+        self.meta = jnp.asarray(tiles.meta)
+        self.row_to_db = (jnp.asarray(_row_ids_i32(row_to_db))
+                          if row_to_db is not None else None)
+
+    def _codes(self) -> jnp.ndarray:
+        return decode_stream_device(self.row_data, self.vals, self.meta,
+                                    self.M)
 
     @classmethod
-    def from_tree(cls, codewords: np.ndarray, tree,
-                  S: Optional[int] = None, precision: str = "bf16",
-                  fmt: str = "stream") -> "FusedCompressedEngine":
+    def from_tree(cls, codewords: np.ndarray, tree
+                  ) -> "FusedCompressedEngine":
         codes_db = tree.decode_codes()
         codes_scan = codes_db[tree.vec_id.astype(np.int64)]
         return cls(codewords, codes_scan,
-                   row_to_db=tree.vec_id.astype(np.int64), S=S,
-                   precision=precision, fmt=fmt)
+                   row_to_db=tree.vec_id.astype(np.int64))
 
     @classmethod
     def from_tiles(cls, codewords: np.ndarray, tiles: "StreamTiles",
-                   row_to_db: Optional[np.ndarray] = None,
-                   precision: str = "bf16"
+                   row_to_db: Optional[np.ndarray] = None
                    ) -> "FusedCompressedEngine":
         """Engine over pre-built stream tiles.  Construction cost is
         the device upload only — the out-of-core path
         (``bigscale.ChunkedCompressedEngine``) uses this to stream
-        host-resident chunks through the chip per query batch (the
+        host-resident chunks through the device per query batch (the
         reference's O_DIRECT refill, ``deltapq_create_approx_tree.h:
         2816-2822``)."""
-        codewords = np.asarray(codewords, np.float32)
-        M, K, Ds = codewords.shape
         self = cls.__new__(cls)
-        self.codewords = jnp.asarray(codewords)
-        self.M, self.K, self.Ds = M, K, Ds
-        self.D = M * Ds
-        self.d_pad = -(-self.D // 128) * 128
-        self.fmt = "stream"
-        self.tiles = tiles
-        self.vals = jnp.asarray(tiles.vals)
-        self.meta = jnp.asarray(tiles.meta)
-        self.n_valid = tiles.n_valid
-        self.row_data = jnp.asarray(tiles.row_data)
-        self.mu = np.zeros(self.d_pad, np.float32)
-        self.mu[:self.D] = fp.codebook_center(codewords)
-        self.precision = precision
-        _setup_precision(self, codewords, precision)
-        self.row_to_db = (jnp.asarray(
-            _row_ids_i32(row_to_db))
-            if row_to_db is not None else None)
+        self._init_codebook(codewords)
+        self._set_tiles(tiles, row_to_db)
         return self
 
     def bytes_per_vec(self) -> float:
@@ -600,14 +350,11 @@ class FusedCompressedEngine:
     def calibrate(self, top_k: int = 10, b: int = 128,
                   target: float = ADAPT_TARGET, rounds: int = 6
                   ) -> float:
-        """Warmup-time certificate calibration (VERDICT r4 #3): run
-        sampled data-like query batches, measure the first-shot
-        certificate pass rate on THIS index's tie density, and grow
-        ``ns_hint`` (the first rung) until the rate clears ``target``
-        — the static ``_default_n_sub`` heuristic was tuned at 1M and
-        collapsed to first-shot 0.112 at 16M-row chunks (100M BIGRUN),
-        making every batch pay the ~10 ms escalation rung.  Returns
-        the final measured first-shot rate."""
+        """Warmup-time certificate calibration: run sampled data-like
+        query batches, measure the first-shot certificate pass rate on
+        THIS index's tie density, and grow ``ns_hint`` (the first rung)
+        until the rate clears ``target``.  Returns the final measured
+        first-shot rate."""
         q = self._warmup_queries(b, seed=17)
         frac = 0.0
         for _ in range(rounds):
@@ -634,74 +381,27 @@ class FusedCompressedEngine:
 
     def warmup(self, batch_sizes=(512,), top_k: int = 10,
                calibrate: bool = True) -> None:
-        """Pre-compile the full query path (kernel + in-graph
-        escalation ladder) for the given batch sizes, so a cold
-        process serves its first wave at steady-state latency
-        (VERDICT r3 weak #5: 28 s first-query at 20M).  Compiled
-        executables also land in the persistent XLA cache, making the
-        NEXT process's warmup near-free.  ``calibrate`` sizes the
-        certificate's first rung to the index's measured tie density
-        first, so the batch-size compiles happen at the rung the
-        steady state will actually use."""
+        """Pre-compile the full query path (decode + scan + in-graph
+        escalation ladder) for the given batch sizes, so a cold process
+        serves its first wave at steady-state latency.  ``calibrate``
+        sizes the certificate's first rung to the index's measured tie
+        density first, so the batch-size compiles happen at the rung
+        the steady state will actually use."""
         if calibrate:
             self.calibrate(top_k=top_k)
         for b in batch_sizes:
             self.query(self._warmup_queries(b), top_k=top_k)
 
-    def query(self, queries: np.ndarray, top_k: int = 10,
-              n_sub: Optional[int] = None
-              ) -> Tuple[np.ndarray, np.ndarray]:
-        q, b = _pad_queries(queries, self.d_pad)
-        qj = jnp.asarray(q)
-        table = adc_table(self.codewords, qj[:, :self.D])
-        qc_np = q - self.mu[None, :]            # centered scan domain
-        qc = jnp.asarray(qc_np)
-        q2 = jnp.sum(qc * qc, axis=1)
-        qk = fp.pack_query_grouped(qc_np[:, :self.D], self.M, self.Ds)
-        qop, invalid, uq, eq = _mins_query_args(qk, self.precision,
-                                                self.scale)
-        if self.fmt == "stream":
-            mins, codes_echo = fp.fused_stream_mins(
-                qop, self.cwbd, self.row_data, self.vals, self.meta,
-                jnp.int32(self.n_valid), self.tiles.e_max, self.M,
-                u=uq, int16=self.precision == "int16")
-        else:
-            mins, codes_echo = fp.fused_delta_mins(
-                qop, self.cwbd, self.row_data, self.ovf,
-                jnp.int32(self.n_valid), self.tiles.S, u=uq,
-                int16=self.precision == "int16")
-        if self.precision in ("int8", "int16"):
-            q2, err_r, scale2 = _quantized_query_stats(self, qop, uq,
-                                                       eq)
-        else:
-            err_r = None
-            scale2 = None
-        d, rows, frac = _select_with_escalation(
-            mins, q2, table, codes_echo, jnp.int32(self.n_valid),
-            top_k, n_sub, invalid=invalid, err_r=err_r,
-            scale2=scale2, engine=self)
-        self.last_exact_frac = frac
-        if self.row_to_db is not None:
-            mapped = jnp.take(self.row_to_db,
-                              jnp.clip(rows, 0, self.n_valid - 1))
-            rows = jnp.where(rows >= 0, mapped, -1)  # keep padding
-        return np.asarray(d[:b]), np.asarray(rows[:b])
-
     def save(self, path: str) -> None:
-        """Persist the delta tiles + mapping (staged-artifact model,
+        """Persist the stream tiles + mapping (staged-artifact model,
         SURVEY §5): ~compressed size on disk, load is upload-only."""
-        common = dict(row_data=self.tiles.row_data,
-                      n_valid=self.n_valid, M=self.M, fmt=self.fmt,
-                      codewords=np.asarray(self.codewords),
-                      row_to_db=(np.asarray(self.row_to_db)
-                                 if self.row_to_db is not None
-                                 else np.zeros(0, np.int32)))
-        if self.fmt == "stream":
-            np.savez(path, vals=self.tiles.vals, meta=self.tiles.meta,
-                     e_max=self.tiles.e_max, **common)
-        else:
-            np.savez(path, ovf=self.tiles.ovf, S=self.tiles.S,
-                     Cap=self.tiles.Cap, **common)
+        np.savez(path, row_data=self.tiles.row_data, vals=self.tiles.vals,
+                 meta=self.tiles.meta, e_max=self.tiles.e_max,
+                 n_valid=self.n_valid, M=self.M,
+                 codewords=np.asarray(self.codewords),
+                 row_to_db=(np.asarray(self.row_to_db)
+                            if self.row_to_db is not None
+                            else np.zeros(0, np.int32)))
 
     @classmethod
     def load(cls, path: str) -> "FusedCompressedEngine":
@@ -709,60 +409,31 @@ class FusedCompressedEngine:
         if not os.path.exists(path) and os.path.exists(path + ".npz"):
             path = path + ".npz"  # np.savez appends the suffix
         z = np.load(path, allow_pickle=False)
-        self = cls.__new__(cls)
-        codewords = np.asarray(z["codewords"], np.float32)
-        M, K, Ds = codewords.shape
-        self.codewords = jnp.asarray(codewords)
-        self.M, self.K, self.Ds = M, K, Ds
-        self.D = M * Ds
-        self.d_pad = -(-self.D // 128) * 128
-        self.fmt = str(z["fmt"]) if "fmt" in z else "slots"
-        if self.fmt == "stream":
-            self.tiles = StreamTiles(
-                row_data=z["row_data"], vals=z["vals"], meta=z["meta"],
-                n_valid=int(z["n_valid"]), M=int(z["M"]),
-                e_max=int(z["e_max"]))
-            self.vals = jnp.asarray(self.tiles.vals)
-            self.meta = jnp.asarray(self.tiles.meta)
-        else:
-            self.tiles = DeltaTiles(
-                row_data=z["row_data"], ovf=z["ovf"],
-                n_valid=int(z["n_valid"]), M=int(z["M"]),
-                S=int(z["S"]), Cap=int(z["Cap"]))
-            self.ovf = jnp.asarray(self.tiles.ovf)
-        self.n_valid = self.tiles.n_valid
-        self.row_data = jnp.asarray(self.tiles.row_data)
-        self.mu = np.zeros(self.d_pad, np.float32)
-        self.mu[:self.D] = fp.codebook_center(codewords)
-        self.precision = "bf16"
-        self.scale = None
-        self.cwbd = jnp.asarray(fp.build_blockdiag_codebook(
-            codewords, center=self.mu[:self.D]))
+        tiles = StreamTiles(
+            row_data=z["row_data"], vals=z["vals"], meta=z["meta"],
+            n_valid=int(z["n_valid"]), M=int(z["M"]),
+            e_max=int(z["e_max"]))
         rtd = z["row_to_db"]
-        self.row_to_db = jnp.asarray(rtd) if len(rtd) else None
-        return self
+        return cls.from_tiles(z["codewords"], tiles,
+                              row_to_db=rtd if len(rtd) else None)
 
 
 @functools.partial(jax.jit, static_argnames=("top_k",))
 def exact_all_topk(table, codes_pad, n_valid, top_k):
     """Exact f32 ADC top-k over a SMALL code array, gather-free.
 
-    dist[n, b] = sum_m T[b, m, codes[n, m]] computed as an MXU
-    matmul: a query-independent one-hot [n_pad, M*K] (rebuilt per
-    call, ~0.1 ms — storing it would cost K bytes/row) contracted
-    with the flattened tables [M*K, B].  Measured 3.1 ms/batch at 28K
-    rows / B=512 vs 11.8 ms for the shortlist+certificate ladder —
-    XLA's batched gathers price every per-query-candidate formulation
-    out (~0.17 us/descriptor), so below ``EXACT_ALL_MAX_ROWS`` the
-    dedup tier just reranks EVERYTHING on the MXU.
+    dist[n, b] = sum_m T[b, m, codes[n, m]] computed as one matrix
+    product: a query-independent one-hot [n_pad, M*K] (rebuilt per
+    call; storing it would cost K bytes/row) contracted with the
+    flattened tables [M*K, B].  Below ``EXACT_ALL_MAX_ROWS`` distinct
+    rows the dedup tier reranks EVERYTHING this way.
 
     Precision: the one-hot operand is EXACT in bf16 (0/1), so instead
-    of a Precision.HIGHEST f32 dot (6 bf16 passes) the table is split
-    into 3 bf16 digits (h1 = bf16(t), h2 = bf16(t-h1), h3 = the
-    rest) and contracted in 3 bf16 passes with f32 accumulation —
-    every product is exact, the digit sum carries ~24 mantissa bits
-    (f32-faithful), and the matmul runs 1.94 vs 2.99 ms/batch
-    (round-4 A/B, tools/bench_exact_all.py)."""
+    of a Precision.HIGHEST f32 product the table is split into 3 bf16
+    digits (h1 = bf16(t), h2 = bf16(t-h1), h3 = the rest) and
+    contracted in 3 bf16 passes with f32 accumulation — every product
+    is exact and the digit sum carries ~24 mantissa bits
+    (f32-faithful)."""
     B, M, K = table.shape
     n_pad = codes_pad.shape[0]
     tf = table.reshape(B, M * K)
@@ -772,9 +443,9 @@ def exact_all_topk(table, codes_pad, n_valid, top_k):
           ).astype(jnp.bfloat16) for m in range(M)], axis=1)
     tft = tf.T                                        # [M*K, B] f32
     # the digit split MUST use lax.reduce_precision, not bf16 casts:
-    # the terminal sets --xla_allow_excess_precision=true, under which
-    # XLA folds ``t - f32(bf16(t))`` to zero and the digits collapse
-    # to one bf16 pass (measured: results quantized to bf16 grid)
+    # under --xla_allow_excess_precision XLA folds
+    # ``t - f32(bf16(t))`` to zero and the digits collapse to one bf16
+    # pass (results quantized to the bf16 grid)
     h1 = jax.lax.reduce_precision(tft, 8, 7)
     r1 = tft - h1
     h2 = jax.lax.reduce_precision(r1, 8, 7)
@@ -795,9 +466,9 @@ class DedupCompressedEngine:
     """Duplicate-code-collapsed compressed tier.
 
     Clustered datasets produce heavy PQ-code duplication, and identical
-    codes have identical ADC distances.  The scan kernel's cost is per
-    ROW, so this tier scans each DISTINCT code once and expands row ids
-    at result time: top-k distinct codes by exact distance always cover
+    codes have identical ADC distances.  The scan's cost is per ROW, so
+    this tier scans each DISTINCT code once and expands row ids at
+    result time: top-k distinct codes by exact distance always cover
     >= top_k rows (every distinct code has at least one row), so the
     expanded (distance, id) lists equal the full scan's up to the order
     among equal-distance duplicates — the same tie semantics as the
@@ -811,17 +482,15 @@ class DedupCompressedEngine:
     """
 
     #: distinct-row count below which queries skip the shortlist
-    #: ladder and rerank every distinct code in one exact f32 matmul
-    #: (``exact_all_topk``); above it, the stream kernel + certificate
+    #: ladder and rerank every distinct code in one exact f32 product
+    #: (``exact_all_topk``); above it, the fused scan + certificate
     #: ladder amortizes better
     EXACT_ALL_MAX_ROWS = 65536
 
     #: distinct-row count above which the inner engine is chunked
-    #: (one kernel call's SMEM tile-meta scales with rows/1024)
     CHUNKED_MIN_ROWS = 32 * 1024 * 1024
 
     def __init__(self, codewords: np.ndarray, codes_db: np.ndarray,
-                 precision: str = "int8", fmt: str = "stream",
                  chunked_min_rows: int = CHUNKED_MIN_ROWS,
                  mesh=None, shard_axis: str = "shard"):
         codes_db = np.asarray(codes_db)
@@ -829,7 +498,7 @@ class DedupCompressedEngine:
         self.codewords = jnp.asarray(cwf)
         self.M, _, self.Ds = cwf.shape
         self.D = self.M * self.Ds
-        self.d_pad = -(-self.D // 128) * 128
+        self.d_pad = fp.scan_width(self.D)
         order = np.lexsort(codes_db.T[::-1])
         sc = codes_db[order]
         new = np.ones(len(sc), bool)
@@ -840,12 +509,11 @@ class DedupCompressedEngine:
         self.order = order
         self.n_rows = len(codes_db)
         self._unique_codes = sc[new]
-        self._precision, self._fmt = precision, fmt
         self._chunked_min_rows = chunked_min_rows
         self._mesh, self._shard_axis = mesh, shard_axis
         self._engine = None
         if mesh is None and self.n_unique <= self.EXACT_ALL_MAX_ROWS:
-            n_pad = -(-self.n_unique // 1024) * 1024
+            n_pad = -(-self.n_unique // TILE) * TILE
             cp = np.zeros((n_pad, codes_db.shape[1]), np.uint8)
             cp[:self.n_unique] = sc[new]
             self._codes_pad = jnp.asarray(cp)
@@ -855,14 +523,12 @@ class DedupCompressedEngine:
 
     @property
     def engine(self):
-        """Inner stream engine over the distinct codes, built LAZILY:
-        below ``EXACT_ALL_MAX_ROWS`` distinct rows the query path is
-        ``exact_all_topk`` and never touches it (eager construction
-        wasted the tile pack + device upload in the common
-        small-distinct regime — ADVICE r4).  With a ``mesh``, the
+        """Inner engine over the distinct codes, built LAZILY: below
+        ``EXACT_ALL_MAX_ROWS`` distinct rows the query path is
+        ``exact_all_topk`` and never touches it.  With a ``mesh``, the
         distinct-code scan shards over the devices
         (``ShardedCompressedEngine``) and only the row expansion stays
-        on the host — the dedup tier's multi-chip form."""
+        on the host."""
         if self._engine is None:
             cw = np.asarray(self.codewords)
             if self._mesh is not None:
@@ -874,12 +540,10 @@ class DedupCompressedEngine:
             elif self.n_unique > self._chunked_min_rows:
                 from ..bigscale import ChunkedCompressedEngine
                 self._engine = ChunkedCompressedEngine(
-                    cw, self._unique_codes, precision=self._precision,
-                    resident=True)
+                    cw, self._unique_codes, resident=True)
             else:
                 self._engine = FusedCompressedEngine(
-                    cw, self._unique_codes, precision=self._precision,
-                    fmt=self._fmt)
+                    cw, self._unique_codes)
         return self._engine
 
     @property

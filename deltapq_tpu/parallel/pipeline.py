@@ -16,9 +16,9 @@ software-pipeline carry.  Each scan step
    (comm-heavy, tiny payload: ``S * B * k`` pairs).
 
 The two stages have no data dependency inside a step, so XLA's
-latency-hiding scheduler issues the all-gather while the MXU runs the
-scan — the collective rides ICI behind compute instead of serializing
-after it.  Results come out shifted by one step; a flush step drains
+latency-hiding scheduler issues the all-gather while the scan runs —
+the collective rides the interconnect behind compute instead of
+serializing after it.  Results come out shifted by one step; a flush step drains
 the last batch.
 """
 

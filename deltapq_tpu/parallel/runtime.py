@@ -29,8 +29,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
     """Initialize the multi-host runtime; returns the process count.
 
     With no arguments this is a single-process no-op (the common local
-    case and all CI).  On a multi-host slice, pass the coordinator or
-    rely on the TPU environment auto-detection.
+    case and all CI).  On several hosts, pass the coordinator address,
+    process count and this process's id.
     """
     import jax
 

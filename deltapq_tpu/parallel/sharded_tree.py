@@ -97,8 +97,10 @@ def build_sharded_trees(codes: np.ndarray, K: int, n_shards: int,
         import multiprocessing as mp
         from concurrent.futures import ProcessPoolExecutor
 
+        from ..platform import cpu_only_worker
+
         with ProcessPoolExecutor(
-                max_workers=workers,
+                max_workers=workers, initializer=cpu_only_worker,
                 mp_context=mp.get_context("spawn")) as ex:
             trees = list(ex.map(_build_shard_tree, jobs))
     else:
@@ -216,7 +218,7 @@ def make_sharded_compressed_query_fn(mesh: Mesh, pack: ShardedDeltaPack,
         # a shard can hold fewer rows than top_k; clamp the local k and
         # pad candidates so the cross-shard merge stays uniform
         k_local = min(top_k, n_pad)
-        d, li = smallest_k(db_dist, k_local, select="exact")
+        d, li = smallest_k(db_dist, k_local)
         if k_local < top_k:
             pad = top_k - k_local
             d = jnp.concatenate(

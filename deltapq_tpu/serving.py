@@ -1,13 +1,11 @@
 """Wave-coalescing serving layer.
 
-The stream (compressed) tier's per-dispatch cost is dominated by
-query-INDEPENDENT in-kernel work — delta decode, one-hot build,
-``||xhat||^2`` — ~4 ms per pass over 1M rows, independent of the
-batch width.  Doubling the batch therefore nearly doubles per-chip
-QPS (measured on v5e, 1M rows, int8 stream tier, exact distances:
-B=512 -> 74.1k QPS, B=1024 -> 112.7k, B=2048 -> 155.3k).  The
-reference has no analog: its scan is one query at a time
-(``pq_tree.cpp:434-503``), so batching is purely a TPU-side win.
+Part of the compressed tier's per-dispatch cost is query-INDEPENDENT
+work — the stream decode, the codeword gathers, ``||xhat||^2`` — paid
+once per pass over the index whatever the batch width, so wider waves
+amortize it (how much on the GPU is not measured yet).  The reference
+has no analog: its scan is one query at a time
+(``pq_tree.cpp:434-503``).
 
 ``CoalescingServer`` turns that amortization into deliverable
 throughput: clients ``submit()`` query waves of any size; the server

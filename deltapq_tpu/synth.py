@@ -37,3 +37,32 @@ def clustered_vectors(n: int, dim: int, n_clusters: int = 64,
     assign = rng.integers(0, n_clusters, n)
     return (centers[assign] +
             rng.normal(size=(n, dim)).astype(np.float32) * spread)
+
+
+#: calibrated workload recipes for 128-d data coded at M=8, K=256:
+#: (rows per cluster, noise sigma) set the PQ-code duplication factor
+#: (measured at N=1M: sift_like ~1.06x, moderate ~2x, dup_heavy ~37x
+#: with <= 64K distinct codes)
+WORKLOADS = {
+    "sift_like": dict(rows_per_cluster=8, sigma=0.8),
+    "moderate": dict(rows_per_cluster=16, sigma=0.35),
+    "dup_heavy": dict(rows_per_cluster=256, sigma=0.35),
+}
+
+
+def workload_chunks(n: int, dim: int = 128, rows_per_cluster: int = 8,
+                    sigma: float = 0.8, seed: int = 0,
+                    chunk: int = 1 << 20):
+    """Gaussian-mixture vectors of a ``WORKLOADS`` recipe, yielded in
+    ``chunk``-row f32 blocks (host memory holds one block at a time).
+    Cluster centers are drawn once; each block draws its own
+    assignments and noise from ``seed``."""
+    rng = np.random.default_rng(seed)
+    n_clusters = max(n // rows_per_cluster, 1)
+    centers = rng.normal(size=(n_clusters, dim)).astype(np.float32) * 4.0
+    for c, lo in enumerate(range(0, n, chunk)):
+        m = min(chunk, n - lo)
+        r = np.random.default_rng([seed, c])
+        x = centers[r.integers(0, n_clusters, size=m)]
+        x += r.normal(size=(m, dim)).astype(np.float32) * sigma
+        yield x

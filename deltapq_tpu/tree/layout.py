@@ -15,7 +15,7 @@ Behavioral re-implementation of
    (``dfs_node_layout``, ``:1156-1183``).
 
 Instead of the reference's array-of-structs ``QNode`` (``:79-101``) the
-result is a structure-of-arrays (TPU/columnar-friendly): dense per-node
+result is a structure-of-arrays (columnar, device-friendly): dense per-node
 columns plus a ragged diff array with CSR offsets.  The root stores its
 full code as M pseudo-diffs with from = 255 sentinel (reference uses
 from = -1, ``:1437-1445``).
@@ -156,8 +156,8 @@ def build_layout(codes: np.ndarray, edges: np.ndarray, root_id: int,
     codes).  "dist" = descending max_dist2p (reference pruning
     semantics, :1421-1426; natural order in light mode).  "code" =
     lexicographic by child code: consecutive DFS siblings then share
-    changed-subspace patterns, which is what the sequential delta-tile
-    format (``ops/delta_tiles.py``) compresses — use for the fused
+    changed-subspace patterns, which is what the sequential stream-tile
+    format (``ops/stream_tiles.py``) compresses — use for the fused
     compressed tier.
     """
     codes = np.asarray(codes)

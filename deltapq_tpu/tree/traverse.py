@@ -4,7 +4,7 @@ Python mirror of ``query_processing_scan_compressed_codes_opt_in_memory``
 (``deltapq_create_approx_tree.h:3731-3892``): walk the DFS stream with a
 per-depth (code, distance) stack, double-precision distance accumulators
 (``dists_stack`` is ``vector<double>``, ``:3773``), and a size-k
-max-heap.  Used as the behavioral oracle for the TPU level-wise kernel
+max-heap.  Used as the behavioral oracle for the level-wise device scan
 and for cross-checking reference-produced DTC files.
 """
 

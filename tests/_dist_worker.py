@@ -82,9 +82,9 @@ np.testing.assert_allclose(np.asarray(new_c), ref_c, rtol=1e-4,
 ref_dist = float(np.sum(np.min(d2, axis=2)))
 assert abs(float(dist) - ref_dist) / ref_dist < 1e-4
 
-# compressed (product) tier across the process boundary (VERDICT r3
-# #7): delta tiles sharded over the 4-device / 2-process mesh, result
-# must match the single-device fused compressed engine
+# compressed (product) tier across the process boundary: one stream
+# per shard over the 4-device / 2-process mesh, result must match the
+# single-device fused compressed engine
 from deltapq_tpu.ops.fused import FusedCompressedEngine  # noqa: E402
 from deltapq_tpu.parallel.fused_sharded import \
     ShardedCompressedEngine  # noqa: E402
@@ -98,8 +98,7 @@ sh_eng = ShardedCompressedEngine(cw, codes_c[order], mesh,
 d_c, _ = sh_eng.query(queries, top_k=5)
 np.testing.assert_allclose(d_c, d_ref_c, rtol=1e-5, atol=1e-4)
 
-# dedup product tier across the process boundary (VERDICT r4 #5):
-# distinct codes sharded over the 2-process mesh, host row expansion;
+# dedup product tier across the process boundary: distinct codes sharded over the 2-process mesh, host row expansion;
 # distances must match the plain scan over the duplicated rows
 from deltapq_tpu.ops.fused import DedupCompressedEngine  # noqa: E402
 

@@ -56,7 +56,7 @@ def test_chunked_engine_parity(cw_codes, small_dataset, resident):
     cw, codes = cw_codes
     order = np.lexsort(codes.T[::-1])
     eng = ChunkedCompressedEngine(cw, codes[order], row_to_db=order,
-                                  precision="bf16", chunk_rows=1024,
+                                  chunk_rows=1024,
                                   resident=resident)
     assert (len(eng.chunks) if resident else len(eng._host)) > 1
     q = small_dataset[:16] + 0.01

@@ -1,6 +1,6 @@
 """Fused-scan engines: parity vs the exact XLA plain scan.
 
-All three tiers must report exact f32 ADC distances and the same ids
+Both tiers must report exact f32 ADC distances and the same ids
 (modulo equal-distance ties) as ``query_plain(engine="xla")``.
 """
 
@@ -11,12 +11,9 @@ import jax
 import jax.numpy as jnp
 
 from deltapq_tpu.ops.adc import query_plain
-from deltapq_tpu.ops.delta_tiles import (build_delta_tiles,
-                                         decode_delta_tiles)
 from deltapq_tpu.ops.encode import pq_encode
 from deltapq_tpu.ops.fused import (FusedCodesEngine,
-                                   FusedCompressedEngine,
-                                   FusedDecodedEngine)
+                                   FusedCompressedEngine)
 from deltapq_tpu.ops.kmeans import pq_learn
 
 
@@ -36,15 +33,6 @@ def _check(d, i, d_ref, i_ref):
     # id agreement modulo ties: compare distance multisets instead of
     # raw ids (equal distances may order differently)
     assert (np.mean(i == i_ref) > 0.9) or np.allclose(d, d_ref)
-
-
-def test_fused_decoded_parity(pq_setup):
-    cw, codes, queries, d_ref, i_ref = pq_setup
-    eng = FusedDecodedEngine(cw, codes)
-    d, i = eng.query(queries, top_k=10)
-    _check(d, i, d_ref, i_ref)
-    # escalation must leave a recorded first-shot certificate fraction
-    assert 0.0 <= eng.last_exact_frac <= 1.0
 
 
 def test_fused_codes_parity(pq_setup):
@@ -88,54 +76,19 @@ def test_fused_compressed_from_tree(pq_setup, small_dataset):
     _check(d, i, d_ref, i_ref)
 
 
-def test_delta_tiles_roundtrip_random():
-    rng = np.random.default_rng(3)
-    codes = rng.integers(0, 256, size=(2500, 8), dtype=np.uint8)
-    dt = build_delta_tiles(codes)
-    assert np.array_equal(decode_delta_tiles(dt), codes)
-
-
-def test_delta_tiles_roundtrip_chain():
-    rng = np.random.default_rng(4)
-    n, M = 4000, 8
-    codes = np.empty((n, M), np.uint8)
-    codes[0] = rng.integers(0, 256, size=M)
-    for i in range(1, n):
-        codes[i] = codes[i - 1]
-        codes[i, rng.integers(0, M)] = rng.integers(0, 256)
-    dt = build_delta_tiles(codes)
-    assert np.array_equal(decode_delta_tiles(dt), codes)
-    assert dt.bytes_per_vec() < 4.0
-
-
 def test_fused_topk_larger_than_one_subtile(pq_setup):
     cw, codes, queries, _, _ = pq_setup
     d_ref, i_ref = query_plain(cw, queries, codes, top_k=100,
                                engine="xla")
-    eng = FusedDecodedEngine(cw, codes)
+    eng = FusedCompressedEngine(cw, codes)
     d, i = eng.query(queries, top_k=100)
-    np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
-
-
-def test_fused_decoded_gist_shape():
-    """GIST1M-config shapes (M=16, D=960, top-100) through the fused
-    decoded tier: D pads 960->1024 lanes, rerank loops 16 subspaces."""
-    rng = np.random.default_rng(8)
-    M, K, Ds, n, B, top_k = 16, 32, 60, 4000, 16, 100
-    cw = rng.normal(size=(M, K, Ds)).astype(np.float32)
-    codes = rng.integers(0, K, size=(n, M)).astype(np.uint8)
-    queries = rng.normal(size=(B, M * Ds)).astype(np.float32)
-    d_ref, i_ref = query_plain(cw, queries, codes, top_k=top_k,
-                               engine="xla")
-    eng = FusedDecodedEngine(cw, codes)
-    d, i = eng.query(queries, top_k=top_k)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
 
 
 @pytest.fixture(scope="module")
 def gist_setup():
     """GIST1M-config shapes: M=16, D=960 — two mask planes in the
-    delta-tile format, two subspace groups in the fused kernels."""
+    stream-tile format, a 1024-wide padded scan contraction."""
     rng = np.random.default_rng(8)
     M, K, Ds, n, B = 16, 32, 60, 4000, 16
     cw = rng.normal(size=(M, K, Ds)).astype(np.float32)
@@ -148,14 +101,6 @@ def gist_setup():
             codes[i, rng.integers(0, M)] = rng.integers(0, K)
     queries = rng.normal(size=(B, M * Ds)).astype(np.float32)
     return cw, codes, queries
-
-
-def test_delta_tiles_roundtrip_m16(gist_setup):
-    cw, codes, _ = gist_setup
-    dt = build_delta_tiles(codes)
-    assert dt.n_planes == 2
-    assert np.array_equal(decode_delta_tiles(dt), codes)
-    assert dt.bytes_per_vec() < 8.0  # compresses vs 16 B/vec plain
 
 
 def test_fused_codes_m16_parity(gist_setup):
@@ -176,14 +121,6 @@ def test_fused_compressed_m16_parity(gist_setup):
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
 
 
-def test_fused_compressed_m16_int8(gist_setup):
-    cw, codes, queries = gist_setup
-    d_ref, _ = query_plain(cw, queries, codes, top_k=10, engine="xla")
-    eng = FusedCompressedEngine(cw, codes, precision="int8")
-    d, i = eng.query(queries, top_k=10)
-    np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
-
-
 def test_fused_topk_near_database_size():
     """top_k close to (or beyond the candidate pool of) a tiny database
     must pad with (+inf, -1) instead of failing."""
@@ -192,7 +129,7 @@ def test_fused_topk_near_database_size():
     cw = rng.normal(size=(M, K, Ds)).astype(np.float32)
     codes = rng.integers(0, K, size=(n, M)).astype(np.uint8)
     queries = rng.normal(size=(4, M * Ds)).astype(np.float32)
-    eng = FusedDecodedEngine(cw, codes)
+    eng = FusedCodesEngine(cw, codes)
     d, i = eng.query(queries, top_k=680)
     assert d.shape == (4, 680)
     valid = np.isfinite(d)
@@ -215,62 +152,7 @@ def test_fused_compressed_save_load(pq_setup, tmp_path):
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
 
 
-def test_fused_int8_precision_modes(pq_setup):
-    """int8 tiers: quantized shortlist + exact rerank must still
-    produce exact distances (escalation absorbs quantization error)."""
-    cw, codes, queries, d_ref, i_ref = pq_setup
-    for cls, kw in ((FusedCodesEngine, {}),):
-        eng = cls(cw, codes, precision="int8", **kw)
-        d, i = eng.query(queries, top_k=10)
-        np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
-    order = np.lexsort(np.asarray(codes).T[::-1])
-    eng = FusedCompressedEngine(cw, np.asarray(codes)[order],
-                                row_to_db=order, precision="int8")
-    d, i = eng.query(queries, top_k=10)
-    np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
-
-
-def test_fused_int16_precision_modes(pq_setup):
-    """int16 (dual-int8-digit) tiers: the 128x finer quantization step
-    must produce exact distances AND a certificate radius ~128x
-    tighter than int8's (the round-5 fix for certificate collapse on
-    distinct-code workloads)."""
-    from deltapq_tpu.ops.fused import (_int16_codeword_radius,
-                                       _int8_codeword_radius)
-
-    cw, codes, queries, d_ref, i_ref = pq_setup
-    eng = FusedCodesEngine(cw, codes, precision="int16")
-    d, i = eng.query(queries, top_k=10)
-    np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
-    order = np.lexsort(np.asarray(codes).T[::-1])
-    eng = FusedCompressedEngine(cw, np.asarray(codes)[order],
-                                row_to_db=order, precision="int16")
-    d, i = eng.query(queries, top_k=10)
-    np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
-    r8 = _int8_codeword_radius(np.asarray(cw), eng.mu, eng.scale)
-    r16 = _int16_codeword_radius(np.asarray(cw), eng.mu, eng.scale)
-    assert r16 < r8 / 64  # ~128x tighter in practice
-
-
-def test_int16_digit_quantizer_exact():
-    """Digit split/reconstruct roundtrip: values land within
-    scale/256 of the original (the step is scale/128, rounding to
-    nearest), and digits respect int8 bounds."""
-    from deltapq_tpu.ops import fused_pallas as fp
-
-    rng = np.random.default_rng(0)
-    cw = rng.normal(size=(4, 32, 8)).astype(np.float32)
-    q16, scale = fp.quantize_blockdiag_int16(cw)
-    Dg = q16.shape[1] // 2
-    a, b = q16[:, :Dg].astype(np.int32), q16[:, Dg:].astype(np.int32)
-    assert np.abs(a).max() <= 127 and np.abs(b).max() <= 64
-    rec = fp.int16_digits_to_values(q16, scale)
-    bd = fp.build_blockdiag_codebook(cw, dtype=np.float32)
-    assert np.abs(rec - bd).max() <= scale / 256.0 + 1e-6
-
-
-@pytest.mark.parametrize("precision", ["bf16", "int8"])
-def test_dedup_engine_exact(small_dataset, precision):
+def test_dedup_engine_exact(small_dataset):
     """Dedup tier == plain scan distances on heavily duplicated codes
     (ids may permute within equal-distance duplicate groups)."""
     import jax
@@ -283,7 +165,7 @@ def test_dedup_engine_exact(small_dataset, precision):
     M, K = 4, 16  # coarse codebook -> many duplicate codes
     cw = pq_learn(jax.random.key(0), small_dataset, M, K, max_iters=15)
     codes = np.asarray(pq_encode(cw, small_dataset))
-    eng = DedupCompressedEngine(cw, codes, precision=precision)
+    eng = DedupCompressedEngine(cw, codes)
     assert eng.n_unique < len(codes)
     q = small_dataset[:24] + 0.02
     d_ref, i_ref = query_plain(cw, q, codes, top_k=10, engine="xla")

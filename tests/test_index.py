@@ -104,7 +104,7 @@ def test_search_fused_engines(built, small_dataset):
     """The fused round-2 tiers must be reachable through the facade and
     agree with the plain path."""
     d_ref, i_ref = built.search(small_dataset[:8], top_k=5)
-    for engine in ("fused", "fused_codes", "fused_compressed"):
+    for engine in ("fused_codes", "fused_compressed"):
         idx = DeltaPQIndex(built.codewords, built.codes.copy(),
                            engine=engine)
         d, i = idx.search(small_dataset[:8], top_k=5)
@@ -115,7 +115,7 @@ def test_fused_search_with_deletes(built, small_dataset):
     """Fused path must over-fetch so deletes cannot truncate results
     (round-2 review finding)."""
     idx = DeltaPQIndex(built.codewords, built.codes.copy(),
-                       engine="fused")
+                       engine="fused_codes")
     q = small_dataset[:4]
     d0, i0 = idx.search(q, top_k=10)
     # delete every current top-5 of query 0

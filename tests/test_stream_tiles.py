@@ -1,5 +1,5 @@
-"""Stream-tile format (v2): pack/decode losslessness, kernel parity
-vs the codes tier, engine exactness, save/load."""
+"""Stream-tile format: pack/decode losslessness, compressed-tier scan
+parity vs the codes tier, engine exactness, save/load."""
 
 import numpy as np
 import pytest
@@ -61,34 +61,34 @@ def test_compresses_chain():
 
 @pytest.mark.parametrize("M", [8, 16])
 def test_kernel_matches_codes_tier(M):
-    """fused_stream_mins must produce bit-identical mins and echo to
-    fused_codes_mins on the decoded codes."""
+    """The compressed tier's scan (device decode + fused scan) must
+    produce bit-identical mins to the codes tier's scan of the same
+    codes, and the decoded codes the rerank reads must equal them."""
+    from deltapq_tpu.ops.stream_tiles import decode_stream_device
+
     rng = np.random.default_rng(M)
     n, K, Ds = 5000, 256, 4
     codes = _structured_codes(rng, n, M, K)
     st = build_stream_tiles(codes)
 
     cw = rng.normal(size=(M, K, Ds)).astype(np.float32)
-    d_pad = -(-M * Ds // 128) * 128
-    mu = np.zeros(d_pad, np.float32)
-    mu[:M * Ds] = fp.codebook_center(cw)
-    cwbd = jnp.asarray(fp.build_blockdiag_codebook(cw,
-                                                   center=mu[:M * Ds]))
-    B = 128
-    q = rng.normal(size=(B, M * Ds)).astype(np.float32)
-    qk = fp.pack_query_grouped(q - mu[None, :M * Ds], M, Ds)
-    qop = jnp.asarray(qk.astype(jnp.bfloat16).T)
+    mu = fp.codebook_center(cw)
+    cb = fp.scan_codebook(cw, mu)
+    d_pad = fp.scan_width(M * Ds)
+    q = np.zeros((128, d_pad), np.float32)
+    q[:, :M * Ds] = rng.normal(size=(128, M * Ds)) - mu
+    qop = jnp.asarray(q, jnp.bfloat16).T
 
-    mins, echo = fp.fused_stream_mins(
-        qop, cwbd, jnp.asarray(st.row_data), jnp.asarray(st.vals),
-        jnp.asarray(st.meta), jnp.int32(n), st.e_max, M)
-    assert np.array_equal(np.asarray(echo)[:n], codes)
+    dec = decode_stream_device(jnp.asarray(st.row_data),
+                               jnp.asarray(st.vals),
+                               jnp.asarray(st.meta), M)
+    assert np.array_equal(np.asarray(dec)[:n], codes)
+    mins = fp.scan_mins(qop, cb, dec, jnp.int32(n), M, K, Ds)
 
-    n_pad = st.n_pad
-    codes_p = np.zeros((n_pad, M), np.uint8)
+    codes_p = np.zeros((st.n_pad, M), np.uint8)
     codes_p[:n] = codes
-    mins_ref, _ = fp.fused_codes_mins(qop, cwbd, jnp.asarray(codes_p),
-                                      jnp.int32(n))
+    mins_ref = fp.scan_mins(qop, cb, jnp.asarray(codes_p), jnp.int32(n),
+                            M, K, Ds)
     np.testing.assert_array_equal(np.asarray(mins),
                                   np.asarray(mins_ref))
 
@@ -98,8 +98,7 @@ def test_window_groups_covers_dense():
     assert window_groups(8, 8 * TILE) >= 9
 
 
-@pytest.mark.parametrize("precision", ["bf16", "int8"])
-def test_engine_stream_exact(small_dataset, precision):
+def test_engine_stream_exact(small_dataset):
     from deltapq_tpu.ops.adc import query_plain
     from deltapq_tpu.ops.encode import pq_encode
     from deltapq_tpu.ops.kmeans import pq_learn
@@ -111,8 +110,7 @@ def test_engine_stream_exact(small_dataset, precision):
     d_ref, i_ref = query_plain(cw, queries, codes, top_k=10,
                                engine="xla")
     order = np.lexsort(codes.T[::-1])
-    eng = FusedCompressedEngine(cw, codes[order], row_to_db=order,
-                                precision=precision, fmt="stream")
+    eng = FusedCompressedEngine(cw, codes[order], row_to_db=order)
     d, i = eng.query(queries, top_k=10)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
 
@@ -129,7 +127,7 @@ def test_engine_stream_save_load(tmp_path, small_dataset):
     path = str(tmp_path / "engine")
     eng.save(path)
     eng2 = FusedCompressedEngine.load(path)
-    assert eng2.fmt == "stream"
+    assert eng2.bytes_per_vec() == eng.bytes_per_vec()
     q = small_dataset[:16]
     d1, i1 = eng.query(q, top_k=5)
     d2, i2 = eng2.query(q, top_k=5)

@@ -1,11 +1,11 @@
 """Big-N end-to-end run (BASELINE config 4 analog, synthetic):
-chunked generate -> TPU encode -> partitioned build -> compressed-tier
+chunked generate -> device encode -> partitioned build -> compressed-tier
 query -> recall vs streamed exact groundtruth, all timed, with host
 memory bounded by the chunk size.
 
-Usage: python tools/bigrun.py [N] [n_parts] [n_queries] [precision]
-Writes a JSON summary to BIGRUN.json at the repo root (override with
-DELTAPQ_BIGRUN_OUT for pilots).
+Usage: python tools/bigrun.py [N] [n_parts] [n_queries] [out.json]
+Writes the JSON summary to ``out.json`` (default ``bigrun.json`` in the
+working directory) after every phase.
 """
 
 import json
@@ -46,20 +46,14 @@ def main():
     n_total = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000_000
     n_parts = int(sys.argv[2]) if len(sys.argv) > 2 else 16
     n_q = int(sys.argv[3]) if len(sys.argv) > 3 else 100
-    # int8 default: at bigrun cluster density the calibrated first
-    # rung (ns_hint) gives first-shot ~1.0 at int8 too (8M pilot:
-    # int8 0.134s/100 vs int16 0.154 — the int16 radius win doesn't
-    # pay for its 4-pass cross + double-width decode here)
-    precision = sys.argv[4] if len(sys.argv) > 4 else "int8"
+    out_name = sys.argv[4] if len(sys.argv) > 4 else "bigrun.json"
     top_k = 10
-    out_name = os.environ.get("DELTAPQ_BIGRUN_OUT", "BIGRUN.json")
-    report = {"n": n_total, "n_parts": n_parts, "n_queries": n_q,
-              "precision": precision}
+    report = {"n": n_total, "n_parts": n_parts, "n_queries": n_q}
 
     def checkpoint():
         # phase-incremental write: a killed run still lands the phases
-        # it finished (the 20M/100M runs are tens of minutes)
-        with open(os.path.join(ROOT, out_name), "w") as f:
+        # it finished
+        with open(out_name, "w") as f:
             json.dump(report, f, indent=1)
 
     import jax
@@ -105,8 +99,8 @@ def main():
     checkpoint()
 
     t0 = time.time()
-    idx = BigCompressedIndex(cw, codes, n_parts=n_parts, workers=2,
-                            precision=precision)
+    idx = BigCompressedIndex(cw, codes, n_parts=n_parts,
+                             workers=min(n_parts, os.cpu_count() or 1))
     report["t_build_s"] = round(time.time() - t0, 1)
     report["t_sort_s"] = round(idx.build_stats.t_sort, 1)
     report["t_trees_s"] = round(idx.build_stats.t_build, 1)
@@ -119,11 +113,9 @@ def main():
           f"{report['bytes_per_vec']} B/vec", flush=True)
     checkpoint()
 
-    # warmup (VERDICT r4 #7): the serving story routes through
-    # warmup + certificate calibration + the persistent compile
-    # cache; t_warmup_s is the cold-process cost (compiles land in
-    # the XLA cache, so the NEXT process's warmup is near-free) and
-    # t_first_query_s is the first SERVED query after it
+    # warmup + certificate calibration + the persistent compile cache:
+    # t_warmup_s is the cold-process cost and t_first_query_s the
+    # first served query after it
     t0 = time.time()
     idx.warmup(batch_sizes=(n_q,), top_k=top_k)
     report["t_warmup_s"] = round(time.time() - t0, 1)
@@ -143,43 +135,32 @@ def main():
           f"batch {report['t_query_batch_s']}s", flush=True)
     checkpoint()
 
-    # kernel/epilogue split (VERDICT r2 #6): time the scan kernels
-    # alone across all chunks, same query batch
-    try:
-        import jax.numpy as jnp
+    # kernel/epilogue split: time decode + fused scan alone across all
+    # chunks, same query batch
+    import jax.numpy as jnp
 
-        from deltapq_tpu.ops import fused_pallas as fp
-        from deltapq_tpu.ops.fused import (_mins_query_args,
-                                           _pad_queries)
+    from deltapq_tpu.ops import fused_pallas as fp
+    from deltapq_tpu.ops.fused import _pad_queries
 
-        engines = getattr(idx.engine, "chunks", [idx.engine])
-        e0 = engines[0]
-        qp, _ = _pad_queries(queries, e0.d_pad)
-        qc = qp - e0.mu[None, :]
-        qk = fp.pack_query_grouped(qc[:, :e0.D], e0.M, e0.Ds)
-        qop, _, uq, _eq = _mins_query_args(qk, e0.precision, e0.scale)
-        def kernels_once():
-            outs = []
-            for e in engines:
-                mins, echo = fp.fused_stream_mins(
-                    qop, e.cwbd, e.row_data, e.vals, e.meta,
-                    jnp.int32(e.n_valid), e.tiles.e_max, e.M, u=uq,
-                    int16=e.precision == "int16")
-                outs.append(mins)
-            return [m.block_until_ready() for m in outs]
-        kernels_once()  # warm
-        t0 = time.time()
-        kernels_once()
-        report["t_kernel_only_s"] = round(time.time() - t0, 3)
-        report["n_chunks"] = len(engines)
-        fr = [getattr(e, "last_exact_frac", None) for e in engines]
-        fr = [f for f in fr if f is not None]
-        if fr:
-            report["exact_frac"] = round(float(np.mean(fr)), 4)
-        print(f"[bigrun] kernel-only {report['t_kernel_only_s']}s "
-              f"over {len(engines)} chunk(s)", flush=True)
-    except Exception as e:  # breakdown is best-effort
-        report["t_kernel_only_err"] = repr(e)[:200]
+    engines = getattr(idx.engine, "chunks", [idx.engine])
+    e0 = engines[0]
+    qp, _ = _pad_queries(queries, e0.d_pad)
+    qop = jnp.asarray(qp - e0.mu[None, :], jnp.bfloat16).T
+
+    def kernels_once():
+        outs = [fp.scan_mins(qop, e.cb, e._codes(), jnp.int32(e.n_valid),
+                             e.M, e.K, e.Ds) for e in engines]
+        return [m.block_until_ready() for m in outs]
+
+    kernels_once()  # warm
+    t0 = time.time()
+    kernels_once()
+    report["t_decode_scan_s"] = round(time.time() - t0, 3)
+    report["n_chunks"] = len(engines)
+    report["exact_frac"] = round(float(np.mean(
+        [e.last_exact_frac for e in engines])), 4)
+    print(f"[bigrun] decode+scan {report['t_decode_scan_s']}s "
+          f"over {len(engines)} chunk(s)", flush=True)
     checkpoint()
 
     t0 = time.time()
@@ -192,8 +173,7 @@ def main():
           f"recall@10={rec:.4f}", flush=True)
     checkpoint()
 
-    # plain-codes cross-check at the SAME scale (VERDICT r3 #8): the
-    # compressed tier is lossless, so its recall must equal the plain
+    # plain-codes cross-check at the SAME scale: the compressed tier is lossless, so its recall must equal the plain
     # PQ scan's on the identical workload (up to equal-distance ties)
     import jax.numpy as jnp
 
@@ -222,8 +202,7 @@ def main():
           f" recall@10={rec_plain:.4f} (delta "
           f"{report['recall_delta_vs_plain']:+.4f})", flush=True)
 
-    with open(os.path.join(ROOT, out_name), "w") as f:
-        json.dump(report, f, indent=1)
+    checkpoint()
     print(json.dumps(report))
 
 
