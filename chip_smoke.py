@@ -269,13 +269,23 @@ def phase_index(rep, seed):
     differ = ids_agree_up_to_ties(d, ids, d_x, i_x)
     rec = recall_at_k(ids, np.asarray(gt), k=TOP_K)
     rec_x = recall_at_k(i_x, np.asarray(gt), k=TOP_K)
+    # Recall must equal the plain scan's.  The only ids allowed to differ
+    # are those swapped among ties at the k-th distance (checked above),
+    # and each such swap can move the hit count by at most one.
+    swapped = sum(len(set(ids[b].tolist()) - set(i_x[b].tolist()))
+                  for b in range(len(ids)))
+    hit_gap = round(abs(rec - rec_x) * len(ids) * TOP_K)
+    assert hit_gap <= swapped, (rec, rec_x, swapped)
+    if not swapped:
+        assert rec == rec_x, (rec, rec_x)
     rep.emit("index", t0, n=len(base), build_s=round(t_build, 3),
              engine=idx._engine_resolved,
              wave_ms_median=median_ms(ts[1:]), waves=len(ts),
              bytes_per_vec=round(eng.bytes_per_vec(), 4),
              certified_first_shot=eng.last_exact_frac,
              recall_at_10=rec, recall_at_10_plain=rec_x,
-             queries_differing_by_ties=differ, triton_calls=n_triton,
+             queries_differing_by_ties=differ, ids_swapped_by_ties=swapped,
+             recall_hit_gap=hit_gap, triton_calls=n_triton,
              **exact)
     return idx, queries
 

@@ -295,14 +295,13 @@ def task_query(args, metrics: Metrics):
             # continuous batching: fixed-size dispatches, double-buffered
             from .parallel.runtime import ContinuousBatcher, batch_iterator
             outs = list(ContinuousBatcher(
-                lambda b: query_plain(cw, b, codes, top_k=args.topk,
-                                      engine=args.engine)).run(
+                lambda b: query_plain(cw, b, codes,
+                                      top_k=args.topk)).run(
                 batch_iterator(q, args.batch)))
             d = np.concatenate([o[0] for o in outs])[:len(q)]
             i = np.concatenate([o[1] for o in outs])[:len(q)]
         else:
-            d, i = query_plain(cw, q, codes, top_k=args.topk,
-                               engine=args.engine)
+            d, i = query_plain(cw, q, codes, top_k=args.topk)
     dt = time.perf_counter() - t0
     print(f"{dt / len(q) * 1000:.4f} [msec/query]")
     if args.debug:

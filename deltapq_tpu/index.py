@@ -27,6 +27,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+ENGINES = ("auto", "xla", "fused_codes", "fused_compressed", "fused_dedup")
+
 
 class DeltaPQIndex:
     def __init__(self, codewords: np.ndarray, codes: np.ndarray,
@@ -36,6 +38,8 @@ class DeltaPQIndex:
         self.codewords = np.asarray(codewords, np.float32)
         self.M, self.K, self.Ds = self.codewords.shape
         self.codes = np.asarray(codes)
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
         self.engine = engine
         self.tree_method = tree_method
         self.height = height
@@ -122,7 +126,7 @@ class DeltaPQIndex:
         if self._cached_codes is None:
             self._cached_codes = self._all_codes()
         d, i = query_plain(self.codewords, q, self._cached_codes,
-                           top_k=fetch, engine=engine)
+                           top_k=fetch)
         if self.deleted.any():
             dele = np.flatnonzero(self.deleted)
             bad = np.isin(i, dele)

@@ -133,17 +133,13 @@ def pad_codes(codes: np.ndarray, tile_n: int) -> np.ndarray:
 
 
 def query_plain(codewords: np.ndarray, queries: np.ndarray,
-                codes: np.ndarray, top_k: int = 10, tile_n: int = 16384,
-                engine: str = "auto"
+                codes: np.ndarray, top_k: int = 10, tile_n: int = 16384
                 ) -> Tuple[np.ndarray, np.ndarray]:
     """End-to-end plain ADC query (reference ``PQTree::QueryPlain``,
-    ``pq_tree.cpp:434-503``): build tables, scan, top-k.
+    ``pq_tree.cpp:434-503``): build tables, exact gather scan, top-k.
 
-    engine: "xla" or "auto" (the same gather scan; exact, runs
-    everywhere).  Returns (dists [B, top_k], ids [B, top_k]).
+    Returns (dists [B, top_k], ids [B, top_k]).
     """
-    if engine not in ("auto", "xla"):
-        raise ValueError(f"unknown plain-scan engine {engine!r}")
     codewords = jnp.asarray(codewords, jnp.float32)
     M, K, Ds = codewords.shape
     D = M * Ds

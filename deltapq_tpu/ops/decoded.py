@@ -85,11 +85,10 @@ def decoded_topk(xhat_hi: jnp.ndarray, xhat_lo: jnp.ndarray,
     precision: "bf16x2" — 3 bf16 matmuls reproduce the f32 cross term to
     ~2^-18 relative; "bf16" — 1 matmul, ~2^-8 shortlisting error.
     rerank=True recomputes candidate distances with exact f32 table
-    lookups (costs a ~20k-row gather, ~1.5 ms at B=128); rerank=False
-    reports the matmul-domain distances (exact ids for bf16x2 in
-    practice, values within ~1e-5 relative).
-    Shortlisting uses ``lax.approx_min_k`` over the column axis (an
-    exact ``top_k`` over [B, 1M] costs ~7x a memory-bound pass);
+    lookups (a B x shortlist gather); rerank=False reports the
+    matmul-domain distances (exact ids for bf16x2 in practice, values
+    within ~1e-5 relative).
+    Shortlisting uses ``lax.approx_min_k`` over the column axis;
     exact_select=True forces exact top_k selection.
     """
     B, D = queries.shape

@@ -490,8 +490,7 @@ def query_row_store(stream: bytes, n_codes: int, M: int, d_raw: int,
     from ..ops.adc import query_plain
 
     codes, raw = deserialize_dtc_row_store(stream, n_codes, M, d_raw)
-    d, rows = query_plain(codewords, queries, codes, top_k=top_k,
-                          engine="xla")
+    d, rows = query_plain(codewords, queries, codes, top_k=top_k)
     vid = np.asarray(vec_id, np.int64)
     ids = vid[rows]
     return d, ids, raw[rows]
@@ -507,6 +506,5 @@ def query_bits(stream: bytes, n_bits: int, n_codes: int, M: int,
     from ..ops.adc import query_plain
 
     codes = deserialize_bits(stream, n_bits, n_codes, M)
-    d, rows = query_plain(codewords, queries, codes, top_k=top_k,
-                          engine="xla")
+    d, rows = query_plain(codewords, queries, codes, top_k=top_k)
     return d, np.asarray(vec_id, np.int64)[rows]

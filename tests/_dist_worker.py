@@ -53,7 +53,7 @@ d, i = sharded_query_plain(cw, queries, codes, top_k=5, mesh=mesh,
                            tile_n=256)
 
 # single-device reference (local computation, identical on both procs)
-d_ref, i_ref = query_plain(cw, queries, codes, top_k=5, engine="xla")
+d_ref, i_ref = query_plain(cw, queries, codes, top_k=5)
 np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
 
 # one DP Lloyd step across both processes
@@ -106,8 +106,7 @@ distinct = rng.integers(0, K, size=(64, M)).astype(np.uint8)
 codes_dup = distinct[rng.integers(0, 64, size=2048)]
 dd_eng = DedupCompressedEngine(cw, codes_dup, mesh=mesh)
 d_dd, _ = dd_eng.query(queries, top_k=5)
-d_dd_ref, _ = query_plain(cw, queries, codes_dup, top_k=5,
-                          engine="xla")
+d_dd_ref, _ = query_plain(cw, queries, codes_dup, top_k=5)
 np.testing.assert_allclose(d_dd, d_dd_ref, rtol=1e-5, atol=1e-4)
 
 print(f"proc {proc_id}: OK", flush=True)

@@ -42,7 +42,7 @@ def test_big_index_query_parity(cw_codes, small_dataset):
 
     idx = BigCompressedIndex(cw, codes, n_parts=2, workers=1)
     q = small_dataset[:16] + 0.01
-    d_ref, i_ref = query_plain(cw, q, codes, top_k=5, engine="xla")
+    d_ref, i_ref = query_plain(cw, q, codes, top_k=5)
     d, i = idx.query(q, top_k=5)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
 
@@ -60,7 +60,7 @@ def test_chunked_engine_parity(cw_codes, small_dataset, resident):
                                   resident=resident)
     assert (len(eng.chunks) if resident else len(eng._host)) > 1
     q = small_dataset[:16] + 0.01
-    d_ref, i_ref = query_plain(cw, q, codes, top_k=5, engine="xla")
+    d_ref, i_ref = query_plain(cw, q, codes, top_k=5)
     d, i = eng.query(q, top_k=5)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
     assert eng.bytes_per_vec() < codes.shape[1] + 2

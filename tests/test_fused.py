@@ -1,7 +1,7 @@
 """Fused-scan engines: parity vs the exact XLA plain scan.
 
 Both tiers must report exact f32 ADC distances and the same ids
-(modulo equal-distance ties) as ``query_plain(engine="xla")``.
+(modulo equal-distance ties) as the plain gather scan ``query_plain``.
 """
 
 import numpy as np
@@ -23,8 +23,7 @@ def pq_setup(small_dataset):
     cw = pq_learn(jax.random.key(0), small_dataset, M, K, max_iters=25)
     codes = pq_encode(cw, small_dataset)
     queries = small_dataset[:64] + 0.05
-    d_ref, i_ref = query_plain(cw, queries, codes, top_k=10,
-                               engine="xla")
+    d_ref, i_ref = query_plain(cw, queries, codes, top_k=10)
     return cw, codes, queries, d_ref, i_ref
 
 
@@ -78,8 +77,7 @@ def test_fused_compressed_from_tree(pq_setup, small_dataset):
 
 def test_fused_topk_larger_than_one_subtile(pq_setup):
     cw, codes, queries, _, _ = pq_setup
-    d_ref, i_ref = query_plain(cw, queries, codes, top_k=100,
-                               engine="xla")
+    d_ref, i_ref = query_plain(cw, queries, codes, top_k=100)
     eng = FusedCompressedEngine(cw, codes)
     d, i = eng.query(queries, top_k=100)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
@@ -105,8 +103,7 @@ def gist_setup():
 
 def test_fused_codes_m16_parity(gist_setup):
     cw, codes, queries = gist_setup
-    d_ref, i_ref = query_plain(cw, queries, codes, top_k=100,
-                               engine="xla")
+    d_ref, i_ref = query_plain(cw, queries, codes, top_k=100)
     eng = FusedCodesEngine(cw, codes)
     d, i = eng.query(queries, top_k=100)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
@@ -114,8 +111,7 @@ def test_fused_codes_m16_parity(gist_setup):
 
 def test_fused_compressed_m16_parity(gist_setup):
     cw, codes, queries = gist_setup
-    d_ref, i_ref = query_plain(cw, queries, codes, top_k=100,
-                               engine="xla")
+    d_ref, i_ref = query_plain(cw, queries, codes, top_k=100)
     eng = FusedCompressedEngine(cw, codes)
     d, i = eng.query(queries, top_k=100)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
@@ -133,8 +129,7 @@ def test_fused_topk_near_database_size():
     d, i = eng.query(queries, top_k=680)
     assert d.shape == (4, 680)
     valid = np.isfinite(d)
-    d_ref, i_ref = query_plain(cw, queries, codes, top_k=680,
-                               engine="xla")
+    d_ref, i_ref = query_plain(cw, queries, codes, top_k=680)
     np.testing.assert_allclose(d[valid],
                                np.asarray(d_ref)[valid], rtol=1e-5,
                                atol=1e-4)
@@ -168,7 +163,7 @@ def test_dedup_engine_exact(small_dataset):
     eng = DedupCompressedEngine(cw, codes)
     assert eng.n_unique < len(codes)
     q = small_dataset[:24] + 0.02
-    d_ref, i_ref = query_plain(cw, q, codes, top_k=10, engine="xla")
+    d_ref, i_ref = query_plain(cw, q, codes, top_k=10)
     d, ids = eng.query(q, top_k=10)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
     # every returned id's exact table distance equals the reported one

@@ -139,8 +139,7 @@ def test_index_m16_compressed(rng):
     assert idx.tree is not None and idx._stream is None
     q = x[:8] + 0.01
     d, i = idx.search(q, top_k=5)
-    d_ref, _ = query_plain(idx.codewords, q, idx.codes, top_k=5,
-                           engine="xla")
+    d_ref, _ = query_plain(idx.codewords, q, idx.codes, top_k=5)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
     st = idx.stats()
     assert "bytes_per_vec" not in st
@@ -156,5 +155,5 @@ def test_index_fused_dedup_engine(small_dataset):
     q = small_dataset[:8] + 0.01
     d, i = idx.search(q, top_k=5)
     d_ref, _ = query_plain(idx.codewords, q, idx._all_codes(),
-                           top_k=5, engine="xla")
+                           top_k=5)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)

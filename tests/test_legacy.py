@@ -57,8 +57,7 @@ def test_prefix_query_matches_plain_top1(small_dataset):
     codes = np.asarray(pq_encode(cw, x))
     store = BitVecsStore(codes)
     queries = x[:20] + 0.02
-    d_ref, i_ref = query_plain(cw, queries, codes, top_k=1,
-                               engine="xla")
+    d_ref, i_ref = query_plain(cw, queries, codes, top_k=1)
     for b in range(len(queries)):
         rid, dist, stats = prefix_tree_query(store, cw, queries[b],
                                              codes_db=codes)

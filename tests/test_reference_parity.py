@@ -132,8 +132,7 @@ def test_adc_distance_parity_on_reference_stream(ref_dataset):
     n_codes, stream = read_dtc_raw(os.path.join(
         root, f"M{M}K{K}_Approx_compressed_codes_opt_N{N}"))
     queries = read_vecs(os.path.join(root, "query.fvecs"))[:10]
-    d_plain, _ = query_plain(cw, queries, ref_codes, top_k=10,
-                             engine="xla")
+    d_plain, _ = query_plain(cw, queries, ref_codes, top_k=10)
     table = np.asarray(adc_table(cw, queries)).astype(np.float64)
     for b in range(len(queries)):
         d_seq, _ = scan_compressed(stream, n_codes, M, table[b], 10)
@@ -156,8 +155,7 @@ def test_reference_query_top1_distance_matches(ref_dataset):
         os.path.join(root, f"codes.bin.plain.M{M}K{K}N{N}"), M=M, K=K)
     from deltapq_tpu.io import read_vecs
     queries = read_vecs(os.path.join(root, "query.fvecs"))[:10]
-    d_plain, _ = query_plain(cw, queries, ref_codes, top_k=1,
-                             engine="xla")
+    d_plain, _ = query_plain(cw, queries, ref_codes, top_k=1)
     np.testing.assert_allclose(ref_top1, d_plain[:, 0], rtol=5e-4,
                                atol=1e-2)
 
@@ -267,7 +265,7 @@ def _our_recall_at10(root, n, m, nq):
     codes, _ = read_codes(
         os.path.join(root, f"codes.bin.plain.M{m}K{K}N{n}"), M=m, K=K)
     queries = read_vecs(os.path.join(root, "query.fvecs"))[:nq]
-    _, ids = query_plain(cw, queries, codes, top_k=10, engine="xla")
+    _, ids = query_plain(cw, queries, codes, top_k=10)
     gt_ids, _ = read_groundtruth(
         os.path.join(root, "groundtruth", f"N{n}Top10.txt"))
     return float(recall_at_k(ids, gt_ids[:, :10], k=10))
@@ -369,7 +367,7 @@ def test_parity_gist_shape_plain_recall(tmp_path):
         os.path.join(root, f"codes.bin.plain.M{m}K{K}N{n}"), M=m, K=K)
     queries = read_vecs(os.path.join(root, "query.fvecs"))[:nq]
     gt_ids, _ = read_groundtruth(src)
-    _, ids = query_plain(cw, queries, codes, top_k=10, engine="xla")
+    _, ids = query_plain(cw, queries, codes, top_k=10)
     per_q_ours = np.array([
         len(set(ids[q].tolist()) & set(gt_ids[q, :10].tolist())) / 10
         for q in range(nq)])

@@ -64,7 +64,7 @@ def test_exact_all_topk_matches_plain_scan():
     cp[:n] = codes
     tab = adc_table(jnp.asarray(cw), jnp.asarray(q))
     d, ids = exact_all_topk(tab, jnp.asarray(cp), jnp.int32(n), k)
-    d_ref, i_ref = query_plain(cw, q, codes, top_k=k, engine="xla")
+    d_ref, i_ref = query_plain(cw, q, codes, top_k=k)
     np.testing.assert_allclose(np.asarray(d), d_ref, rtol=1e-5,
                                atol=1e-4)
     # ids may differ only on exact-distance ties
@@ -112,7 +112,7 @@ def test_dedup_matches_plain_scan_small():
     ded = DedupCompressedEngine(cw, codes)
     q = rng.normal(size=(5, M * 8)).astype(np.float32)
     d, ids = ded.query(q, top_k=7)
-    d_ref, _ = query_plain(cw, q, codes, top_k=7, engine="xla")
+    d_ref, _ = query_plain(cw, q, codes, top_k=7)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
 
 
@@ -132,7 +132,7 @@ def test_dedup_chunked_inner_engine():
     assert isinstance(ded.engine, ChunkedCompressedEngine)
     q = rng.normal(size=(4, M * 8)).astype(np.float32)
     d, ids = ded.query(q, top_k=6)
-    d_ref, _ = query_plain(cw, q, codes, top_k=6, engine="xla")
+    d_ref, _ = query_plain(cw, q, codes, top_k=6)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
 
 
@@ -214,7 +214,7 @@ def test_final_exact_terminal_scan_guarantees_results():
         mins_nb, jnp.asarray(q2), tab, jnp.asarray(codes),
         jnp.int32(n), k, (2,), 1, invalid=fail, final_exact=True)
     assert not bool(jnp.any(ok))             # all forced to terminal
-    d_ref, _ = query_plain(cw, q, codes, top_k=k, engine="xla")
+    d_ref, _ = query_plain(cw, q, codes, top_k=k)
     np.testing.assert_allclose(np.asarray(d), d_ref, rtol=1e-5,
                                atol=1e-4)
 

@@ -84,7 +84,7 @@ def test_calibrate_reaches_target_and_stays_exact(clustered,
     assert 0.0 <= frac <= 1.0
     q = small_dataset[:16] + 0.05
     d, i = eng.query(q, top_k=5)
-    d_ref, i_ref = query_plain(cw, q, codes, top_k=5, engine="xla")
+    d_ref, i_ref = query_plain(cw, q, codes, top_k=5)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
 
 
@@ -106,7 +106,7 @@ def test_chunked_engine_warmup_seeds_all_chunks(clustered):
     q = rng.normal(size=(8, cw.shape[0] * cw.shape[2])
                    ).astype(np.float32)
     d, i = eng.query(q, top_k=5)
-    d_ref, i_ref = query_plain(cw, q, codes, top_k=5, engine="xla")
+    d_ref, i_ref = query_plain(cw, q, codes, top_k=5)
     np.testing.assert_allclose(d, d_ref, rtol=1e-5, atol=1e-4)
 
 
@@ -219,5 +219,5 @@ def test_config5_mesh_rehearsal_mmap_sharded(clustered, tmp_path):
     q = rng.normal(size=(8, cw.shape[0] * cw.shape[2])
                    ).astype(np.float32)
     d, ids = eng2.query(q, top_k=5)
-    d_ref, _ = query_plain(cw, q, codes, top_k=5, engine="xla")
+    d_ref, _ = query_plain(cw, q, codes, top_k=5)
     np.testing.assert_allclose(d, d_ref, rtol=1e-4, atol=1e-4)

@@ -151,7 +151,7 @@ def test_server_dedup_engine_under_concurrent_load():
     codes = distinct[rng.integers(0, 64, size=3000)]
     eng = DedupCompressedEngine(cw, codes)
     qs = rng.normal(size=(64, M * Ds)).astype(np.float32)
-    d_ref, _ = query_plain(cw, qs, codes, top_k=5, engine="xla")
+    d_ref, _ = query_plain(cw, qs, codes, top_k=5)
 
     results = {}
     errs = []

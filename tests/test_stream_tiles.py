@@ -107,8 +107,7 @@ def test_engine_stream_exact(small_dataset):
     cw = pq_learn(jax.random.key(0), small_dataset, M, K, max_iters=25)
     codes = np.asarray(pq_encode(cw, small_dataset))
     queries = small_dataset[:32] + 0.05
-    d_ref, i_ref = query_plain(cw, queries, codes, top_k=10,
-                               engine="xla")
+    d_ref, i_ref = query_plain(cw, queries, codes, top_k=10)
     order = np.lexsort(codes.T[::-1])
     eng = FusedCompressedEngine(cw, codes[order], row_to_db=order)
     d, i = eng.query(queries, top_k=10)

@@ -431,8 +431,7 @@ def test_row_store_and_bits_query_paths(small_dataset):
     tree = build_layout(codes, res.edges, res.root_id, K=16,
                         codewords=cw)
     queries = x[:16] + 0.03
-    d_ref, i_ref = query_plain(cw, queries, codes, top_k=5,
-                               engine="xla")
+    d_ref, i_ref = query_plain(cw, queries, codes, top_k=5)
 
     raw = np.clip(x * 8 + 128, 0, 255).astype(np.uint8)
     rs = serialize_dtc_row_store(tree, raw)
